@@ -34,8 +34,8 @@ def main():
     driver.underruns = 0
 
     # orbit at 1 rev / 2 s, radius 5 m; motion is paced by *rendered* time so
-    # the demo is correct on any machine (on a TPU the loop runs in realtime;
-    # under CPU interpret mode it renders slower than wall clock)
+    # the demo is correct on any machine (on a GPU the loop runs in realtime;
+    # on a slow CPU it renders slower than wall clock)
     frames = []
     rendered = 0.0
     while rendered < 1.5:

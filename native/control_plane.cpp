@@ -3,7 +3,7 @@
 // The reference (oddio) is sans-I/O: its audio thread communicates with the
 // control thread exclusively through wait-free lock-free structures —
 // a bounded SPSC ring channel (src/spsc.rs) and a last-value-wins triple
-// buffer (src/swap.rs).  In the TPU rebuild the *device* control plane is
+// buffer (src/swap.rs).  In this rebuild the *device* control plane is
 // parameter arrays, but the host-side real-time integration (audio-callback
 // thread consuming rendered blocks; game thread publishing control values)
 // still needs the same wait-free machinery.  This file provides it as a

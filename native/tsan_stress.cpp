@@ -1,7 +1,7 @@
 // ThreadSanitizer stress harness for the wait-free control plane.
 //
 // The reference validated its unsafe lock-free code with Miri in CI
-// (reference .github/workflows/rust.yml:75-98).  The TPU rebuild's analogous
+// (reference .github/workflows/rust.yml:75-98).  This rebuild's analogous
 // unsafe surface is native/control_plane.cpp; this harness hammers both
 // primitives from two threads under TSan:
 //

@@ -1,8 +1,8 @@
-"""oddio_tpu — a TPU-native batch audio rendering engine.
+"""oddio_tpu — a batch audio rendering engine in JAX.
 
 A from-scratch rebuild of the capabilities of Ralith/oddio (a real-time,
-sans-I/O game-audio library, see /root/reference) as dense batch computation
-on TPU via JAX/XLA/Pallas:
+sans-I/O game-audio library, see SURVEY.md) as dense batch computation
+on an accelerator via JAX/XLA:
 
 * signal chains compile to fused XLA kernels over fixed-size frame blocks;
 * the dynamic voice set becomes masked, vmapped voice pools reduced in a
@@ -10,7 +10,7 @@ on TPU via JAX/XLA/Pallas:
 * the lock-free spsc/swap/atomic control plane becomes host-written per-block
   parameter arrays with oddio's handle API (`play`, `stop`, `set_gain`,
   `set_motion`, `seek`, ...);
-* scenes scale across chips by sharding the voice/scene axes over a
+* scenes scale across devices by sharding the voice/scene axes over a
   `jax.sharding.Mesh`.
 
 Public surface mirrors oddio's re-exports (reference lib.rs:65-82).

@@ -2,7 +2,7 @@
 
 The reference is driven by a host audio callback (examples/simple.rs:27-38):
 the *audio thread* pulls blocks with ``oddio::run`` while the *control
-thread* mutates parameters through wait-free channels.  On TPU, block
+thread* mutates parameters through wait-free channels.  On the device, block
 rendering has dispatch latency, so the equivalent architecture is:
 
   control thread  --handles-->  render thread  --native SPSC ring-->  audio callback

@@ -170,19 +170,18 @@ class DRCtrlMixin:
         self._fade_dur = {
             p: np.full(V, -1.0, np.float32) for p in self.fade_paths
         }
-        #: downsampling-bound bookkeeping: live slots' spec chains (their
-        #: control mirrors stay current — ControlBlock.set always writes
-        #: the spec's own field) feed host_ds_bound; recomputed lazily on
-        #: plays / speed-class control writes so the sampler kernels can
-        #: fall back to the exact whole-arena gather past RESAMPLE_DSMAX
+        #: AGC-bound bookkeeping: live slots' spec chains (their control
+        #: mirrors stay current — ControlBlock.set always writes the spec's
+        #: own field) feed host_ema_bound; recomputed lazily on plays /
+        #: interval-class control writes so Adapt can fall back to the
+        #: associative scan when a tau fails the closed form's gate
         self._slot_specs = {}
         self._extra_specs = {}  # (slot, fade path, bank) -> fade spec
-        self._ds_fields = {
+        self._ema_fields = {
             k for k in self.ctrl_keys
-            if k[1] in getattr(_at_path_spec(proto, k[0]), "_dr_ds_fields", ())
+            if k[1] in getattr(_at_path_spec(proto, k[0]), "_dr_interval_fields", ())
         }
-        self._ds_dirty = True
-        self._ds_small = True
+        self._ema_dirty = True
         self._ema_fast = False
         #: True when NO fader in the pool has pending, in-flight, or
         #: unresolved-inc fades — _fade_tick is then an exact no-op and the
@@ -223,8 +222,8 @@ class DRCtrlMixin:
 
     def push_ctrl(self, path, field, slot, value):
         self.pending_ctrl[(path, field)][slot] = np.float32(value)
-        if (path, field) in self._ds_fields:
-            self._ds_dirty = True
+        if (path, field) in self._ema_fields:
+            self._ema_dirty = True
 
     def push_fade(self, path, slot, gen, spec, duration):
         """fade_to on a DR voice (fader.rs:86-93): queued per (fader,
@@ -257,65 +256,38 @@ class DRCtrlMixin:
                 self._extra_specs.pop((int(slot), p, bank), None)
 
     def _track_spec(self, slot, spec):
-        """Retain a played spec for ds-bound queries (its control mirrors
+        """Retain a played spec for AGC-bound queries (its control mirrors
         stay live through the handles)."""
         self._slot_specs[int(slot)] = spec
-        self._ds_dirty = True
+        self._ema_dirty = True
 
-    def _ds_bound_small(self, interval):
-        """True when every live voice's per-frame source step fits the
-        windowed resample kernels; recomputed only after plays or
-        speed-class control writes."""
-        if self._ds_dirty or getattr(self, "_ds_interval", None) != interval:
-            from ..ops.pallas_agc import EMA_GATE, EMA_NMAX
-            from ..ops.pallas_ring import RESAMPLE_DSMAX
+    def _ema_flag_sync(self, interval):
+        """Resolve whether every live Adapt tau accepts the closed-form AGC
+        (ops/adapt.py::ema_gain_closed) and stamp the verdict onto every
+        node of the proto chain (Adapt reads it at trace time; it is part
+        of the pool archetype, so flipping retraces).  Recomputed only
+        after plays or interval-class control writes."""
+        interval = float(interval)
+        if self._ema_dirty or getattr(self, "_ema_interval", None) != interval:
+            from ..ops.adapt import EMA_GATE, EMA_NMAX
 
-            b = 0.0
             be = 0.0
             for slot, spec in self._slot_specs.items():
                 if self.mask_host[slot]:
-                    b = max(b, spec.host_ds_bound(interval))
                     be = max(be, spec.host_ema_bound(interval))
             for (slot, _p, _bank), spec in self._extra_specs.items():
                 if self.mask_host[slot]:
-                    b = max(b, spec.host_ds_bound(interval))
                     be = max(be, spec.host_ema_bound(interval))
-            self._ds_small = bool(b <= RESAMPLE_DSMAX)
-            #: every live Adapt tau accepts the closed-form AGC kernel
-            #: (ops/pallas_agc.py); pathological taus fall back to the scan
             self._ema_fast = bool(EMA_NMAX * be <= EMA_GATE)
-            # trace-static window-sizing tier: size the read kernels' row
-            # windows for the pool's ACTUAL step bound, not the worst case
-            # (rate-ratio-1 pools nearly halve their gathered bytes and
-            # in-kernel realign range)
-            # 1e-5 tolerance at the ratio-1 boundary: f32 interval*rate
-            # wobbles one ulp above 1.0 for rate-matched sources, and the
-            # window formulas carry >= 3 samples of slack per 512 frames
-            self._ds_tier = (
-                1 if b <= 1.0 + 1e-5 else 2 if b <= 2.0 else 4
-            )
-            self._ds_dirty = False
-            self._ds_interval = interval
-        return self._ds_small
-
-    def _ds_flag_sync(self, interval):
-        """Resolve the pool's kernel-vs-gather read-path flag and stamp it
-        onto every node of the proto chain (the samplers read it at trace
-        time; it is part of the pool archetype, so flipping retraces)."""
-        small = self._ds_bound_small(float(interval))
-        tier = self._ds_tier
+            self._ema_dirty = False
+            self._ema_interval = interval
         fast = self._ema_fast
-        if (getattr(self.proto, "_pool_ds_small", True) != small
-                or getattr(self.proto, "_pool_ds_tier", 4) != tier
-                or getattr(self.proto, "_pool_ema_fast", None) is not fast):
+        if getattr(self.proto, "_pool_ema_fast", None) is not fast:
             stack = [self.proto]
             while stack:
                 node = stack.pop()
-                node._pool_ds_small = small
-                node._pool_ds_tier = tier
                 node._pool_ema_fast = fast
                 stack.extend(_dr_children(node).values())
-        return small
 
     def _fade_mirror_on_play(self, slot, spec):
         """Seed the fader mirrors from the played spec's host state."""
@@ -400,7 +372,7 @@ class DRCtrlMixin:
                     # stay in the ds-bound sweep; only the bank this spec
                     # replaces drops out
                     self._extra_specs[(slot, path, bank)] = spec
-                    self._ds_dirty = True
+                    self._ema_dirty = True
                     prog[slot] = 0.0
                     inc[slot] = inc_s
                     fading[slot] = True

@@ -6,15 +6,15 @@ an f64 cursor with linear interpolation and zero-padding outside the range
 (frames.rs:141-214), publishing its playback position for the control half
 (frames.rs:223-248).
 
-TPU redesign: all ``Frames`` data lives in a per-channel-count **device
+Device form: all ``Frames`` data lives in a per-channel-count **device
 arena** — one concatenated f32 array — so that a pool of voices playing
 *different* sounds is still a single dense gather: each voice carries an
 (offset, length) pair into the arena.  This replaces per-sound ``Arc``
 sharing; loading new sounds appends to the arena (a rare re-upload, analogous
 to oddio's set-realloc protocol, set.rs:208-212).
 
-Cursor precision: oddio keeps ``t`` in f64 (frames.rs:143-149).  TPUs have no
-fast f64, so the cursor stays in **host** f64 and the device receives a
+Cursor precision: oddio keeps ``t`` in f64 (frames.rs:143-149).  Device f64
+is slow or absent, so the cursor stays in **host** f64 and the device receives a
 (base:int32, offset0:f32, ds:f32) decomposition per block — bit-faithful to
 the reference's ``s0 = t*rate; base = s0 as isize`` split (frames.rs:177-189).
 The per-frame offsets use the closed form ``offset0 + i*ds`` rather than the
@@ -34,46 +34,14 @@ from ..ops._dev import exact_positions, lerp, split_ds, top12 as _top12_np
 __all__ = ["Frames", "FramesSignal", "FramesSignalControl"]
 
 
-#: row granularity of the guarded arena (matches the ring/kernel row size)
-ARENA_ROW = 256
-#: zero-guard length around each guarded region: covers a whole block's read
-#: span (RESAMPLE_NMAX * RESAMPLE_DSMAX) plus cursor-row slack, so
-#: out-of-range reads hit literal zeros (frames.rs:105-123) with no masking
-ARENA_GUARD = 3072
-#: maximum read span a looped region must cover past its cursor
-_LOOP_SPAN = ARENA_GUARD
-
-
-def _row_pad(k):
-    return (-k) % ARENA_ROW
-
-
-def guard_stride(length):
-    """Samples between consecutive channels' guarded regions of one sound
-    (a pure function of its length, so per-channel offsets never need to
-    ship: off_c = guard_off + c * guard_stride(len))."""
-    return 2 * ARENA_GUARD + length + _row_pad(length)
-
-
 class _Arena:
-    """Concatenated device storage for all Frames with a given channel count.
-
-    Two mono layouts exist side by side for the device-resident kernel path:
-    *guarded* regions ([zeros, data, zeros], row-aligned — FramesSignal) and
-    *looped* regions (data replicated to cover one block's span past the
-    seam, row-aligned — Cycle), both in a second "garena" array viewed as
-    (rows, 256) so window fetches are row-granular."""
+    """Concatenated device storage for all Frames with a given channel count."""
 
     def __init__(self, channels):
         self.channels = channels
         self._chunks = []  # list of np arrays
         self._total = 0
         self._device = None
-        # one leading zero row so window fetches biased a sample before a
-        # region start still index valid rows
-        self._gchunks = [np.zeros(ARENA_ROW, np.float32)]
-        self._gtotal = ARENA_ROW
-        self._gdevice = None
 
     def add(self, data):
         off = self._total
@@ -81,29 +49,6 @@ class _Arena:
         self._total += data.shape[0]
         self._device = None
         return off
-
-    def add_guarded(self, data):
-        """Returns the garena sample index of data[0]."""
-        z = np.zeros(ARENA_GUARD, np.float32)
-        tail = np.zeros(ARENA_GUARD + _row_pad(len(data)), np.float32)
-        for c in (z, data, tail):
-            self._gchunks.append(c)
-        off = self._gtotal + ARENA_GUARD
-        self._gtotal += len(z) + len(data) + len(tail)
-        self._gdevice = None
-        return off
-
-    def add_looped(self, data):
-        """Returns (offset of data[0], region length in samples)."""
-        copies = 1 + -(-(_LOOP_SPAN + 2) // max(len(data), 1))
-        rep = np.tile(data, copies)
-        pad = np.zeros(_row_pad(len(rep)), np.float32)
-        off = self._gtotal
-        self._gchunks.append(rep)
-        self._gchunks.append(pad)
-        self._gtotal += len(rep) + len(pad)
-        self._gdevice = None
-        return off, len(rep)
 
     def device(self):
         if self._device is None:
@@ -113,13 +58,6 @@ class _Arena:
             else:
                 self._device = jnp.asarray(np.concatenate(self._chunks, axis=0))
         return self._device
-
-    def device_rows(self):
-        """The guarded arena as (rows, 256) f32."""
-        if self._gdevice is None:
-            flat = np.concatenate(self._gchunks)
-            self._gdevice = jnp.asarray(flat.reshape(-1, ARENA_ROW))
-        return self._gdevice
 
 
 _ARENAS = {}
@@ -145,34 +83,6 @@ class Frames:
         self.data = data
         self.arena = _arena(self.channels)
         self.offset = self.arena.add(data)
-        self._guard_off = None  # lazy guarded region (FramesSignal DR kernel)
-        self._loop_off = None  # lazy looped region (Cycle DR kernel)
-
-    def guard_off(self):
-        """Guarded-region offset of channel 0; multi-channel sounds lay
-        their channels at a constant, length-derivable stride (see
-        guard_stride) so one offset addresses them all."""
-        if self._guard_off is None:
-            if self.channels == 1:
-                self._guard_off = self.arena.add_guarded(self.data)
-            else:
-                offs = [
-                    self.arena.add_guarded(np.ascontiguousarray(self.data[:, c]))
-                    for c in range(self.channels)
-                ]
-                stride = guard_stride(len(self))
-                assert all(
-                    offs[c] == offs[0] + c * stride for c in range(self.channels)
-                )
-                self._guard_off = offs[0]
-        return self._guard_off
-
-    def loop_off(self):
-        if self._loop_off is None:
-            if self.channels != 1:
-                raise ValueError("looped regions are mono-only")
-            self._loop_off = self.arena.add_looped(self.data)
-        return self._loop_off
 
     @classmethod
     def from_slice(cls, rate, samples):
@@ -228,7 +138,7 @@ class FramesSignal(Signal):
     """An audio signal backed by static samples (frames.rs:141-214)."""
 
     seekable = True
-    _host_fields = ("t", "off", "length", "rate", "goff")
+    _host_fields = ("t", "off", "length", "rate")
 
     def __init__(self, frames, start_seconds=0.0):
         super().__init__()
@@ -238,9 +148,6 @@ class FramesSignal(Signal):
         self.off[()] = frames.offset
         self.length[()] = len(frames)
         self.rate[()] = frames._rate
-        # guarded region for the DR resample kernel (channel c of a
-        # multi-channel sound sits at goff + c*guard_stride(length))
-        self.goff[()] = frames.guard_off()
         self._cb = ControlBlock(self)
         self.control = FramesSignalControl(self._cb)
 
@@ -255,7 +162,6 @@ class FramesSignal(Signal):
         self.off = full(batch, 0, np.int32)
         self.length = full(batch, 1, np.int32)
         self.rate = full(batch, 1.0, np.float64)
-        self.goff = full(batch, ARENA_GUARD, np.int32)
 
     def _copy_static_from(self, other):
         pass
@@ -304,9 +210,6 @@ class FramesSignal(Signal):
         """frames.rs:204-206: t >= (len - 1) / rate."""
         return self.t >= (self.length.astype(np.float64) - 1.0) / self.rate
 
-    def host_ds_bound(self, interval):
-        return float(np.max(np.float32(interval) * self.rate.astype(np.float32)))
-
     # control-side views (frames.rs:229-248)
     def _playback_position(self):
         return np.trunc(self.t * self.rate) / self.rate
@@ -316,10 +219,7 @@ class FramesSignal(Signal):
         return (pos >= 0) & (pos >= self.length.astype(np.float64))
 
     def _own_device_data(self):
-        return {
-            "arena": _arena(self.channels).device(),
-            "garena": _arena(self.channels).device_rows(),
-        }
+        return {"arena": _arena(self.channels).device()}
 
     def render(self, dstate, ddata, params, n):
         tr, fr = exact_positions(
@@ -341,52 +241,6 @@ class FramesSignal(Signal):
         return dstate, block
 
 
-def _pool_tier(node):
-    """Trace-static per-frame step bound for the windowed read kernels, in
-    {1, 2, 4}: the pool stamps ``_pool_ds_tier`` from the max
-    ``host_ds_bound`` over live voices (core/drctrl.py).  Sizing windows
-    for the actual bound instead of the worst case (RESAMPLE_DSMAX) nearly
-    halves the gathered bytes and the in-kernel realign range at the
-    common rate-ratio-1 shapes."""
-    return int(getattr(node, "_pool_ds_tier", 4))
-
-
-def _dr_resample(garena, xg, lo, hi, o0, ds_int, f_hi, f_lo, n, DS=4):
-    """Shared DR wavetable read: clamp the trunc-form integer cursor into
-    its (guarded or looped) region, fetch the covering row window, and run
-    the strided resample kernel (ops/pallas_ring.py).  All array inputs are
-    (V,) device values; ``o0`` is the trunc-form fraction (may be
-    negative).  The window is biased one sample early so in-kernel indices
-    stay nonnegative when the relative offset truncates to -1.  ``DS`` is
-    the trace-static per-frame step bound (<= RESAMPLE_DSMAX) the window
-    is sized for."""
-    import jax
-
-    from ..ops.pallas_ring import (
-        RESAMPLE_W,
-        pack_select_scalars,
-        strip_resample,
-    )
-
-    ROW = ARENA_ROW
-    xc = jnp.clip(xg - 1, lo, hi)
-    row0 = xc // ROW
-    extra = xc - row0 * ROW + 1
-    S_req = max(
-        ((256 + max(n - 128, 0) * DS) // 128) * 128 + RESAMPLE_W,
-        256 + n * DS + 3,
-    )
-    n_rows = -(-S_req // ROW)
-    V = xg.shape[0]
-    idx = (row0[:, None] + jnp.arange(n_rows)).reshape(-1)
-    strips = jnp.take(garena, idx, axis=0, mode="clip").reshape(V, n_rows * ROW)
-    scal = pack_select_scalars(o0, ds_int, f_hi, f_lo)
-    return strip_resample(
-        strips, scal, extra, n=n,
-        interpret=jax.default_backend() != "tpu",
-    )
-
-
 class _FramesDR:
     """Device-resident FramesSignal support, mixed into FramesSignal."""
 
@@ -400,7 +254,6 @@ class _FramesDR:
             "base": np.zeros(V, np.int32),
             "frac": np.zeros(V, np.float32),
             "off": np.zeros(V, np.int32),
-            "goff": np.full(V, ARENA_GUARD, np.int32),
             "length": np.ones(V, np.int32),
             "rate": np.ones(V, np.float32),
             "r_hi": np.ones(V, np.float32),
@@ -422,7 +275,6 @@ class _FramesDR:
             "base": np.int32(np.clip(base, -(2**30), 2**30)),
             "frac": np.float32(s0 - base),
             "off": np.int32(self.off[()]),
-            "goff": np.int32(self.goff[()]),
             "length": np.int32(self.length[()]),
             "rate": np.float32(self.rate[()]),
             "r_hi": _top12_np(self.rate[()]),
@@ -448,65 +300,31 @@ class _FramesDR:
             ds = jnp.where(jnp.abs(ds - 1.0) <= EPS32, 1.0, ds)
             ds_int, f_hi, f_lo = device_split_ds(ds)
 
-        C = self.channels
-        if "garena" in ddata and getattr(self, "_pool_ds_small", True):
-            # row-window fetch + strided resample kernel in <=512-frame
-            # chunks (any n, signal.rs:19); the guarded region's zero pads
-            # carry frames.rs:105-123's edge semantics.  Multi-channel
-            # sounds stack channels onto the kernel's row axis (each
-            # channel's guarded plane sits at goff + c*guard_stride(len))
-            if C == 1:
-                goff = state["goff"]
-                length = state["length"]
-                rep = lambda x: x
-            else:
-                stride = (
-                    2 * ARENA_GUARD + state["length"]
-                    + jnp.mod(-state["length"], ARENA_ROW)
-                )
-                goff = (
-                    state["goff"][:, None]
-                    + jnp.arange(C, dtype=jnp.int32) * stride[:, None]
-                ).reshape(-1)
-                rep = lambda x: jnp.repeat(x, C)
-                length = rep(state["length"])
-            lo = goff - ARENA_GUARD
-            hi = goff + length
-            dsf = (rep(ds_int), rep(f_hi), rep(f_lo))
+        arena = ddata["arena"]
+        off = state["off"][:, None]
+        length = state["length"][:, None]
 
-            def ev(cur, n_c):
-                b, o = cur
-                out = _dr_resample(
-                    ddata["garena"], goff + rep(b), lo, hi, rep(o), *dsf,
-                    n_c, DS=_pool_tier(self),
-                )
-                return out if C == 1 else out.reshape(-1, C, n_c)
-
-            def adv(cur, n_c):
-                b, o = cur
-                neg = o < 0  # trunc-form -> floor-form before advancing
-                b2, o2 = device_advance(
-                    b - neg.astype(jnp.int32), jnp.where(neg, o + 1.0, o),
-                    jnp.int32(n_c), ds_int, f_hi, f_lo,
-                )
-                return b2, o2  # floor-form o2 in [0,1) is valid trunc-form
-
-            samples = chunked_frames(
-                ev, adv, (state["base"], state["frac"]), n
-            )
-        else:
-            tr, fr = exact_positions(
-                state["frac"], ds_int, f_hi, f_lo, n, signed=True,
-            )
-            s = state["base"][:, None] + tr
-            arena = ddata["arena"]
-            a = _arena_get(arena, state["off"][:, None], state["length"][:, None], s)
-            b = _arena_get(arena, state["off"][:, None], state["length"][:, None], s + 1)
+        def ev(cur, n_c):
+            # exact whole-arena gather (frames.rs:176-201 resamples at any
+            # ratio; get_pair's zero edges, frames.rs:105-123)
+            b, o = cur
+            tr, fr = exact_positions(o, ds_int, f_hi, f_lo, n_c, signed=True)
+            s = b[:, None] + tr
+            a = _arena_get(arena, off, length, s)
+            bb = _arena_get(arena, off, length, s + 1)
             if arena.ndim > 1:
-                fr = fr[..., None]
-            samples = lerp(a, b, fr)
-            if arena.ndim > 1:
-                samples = jnp.moveaxis(samples, -1, 1)  # (V, C, n)
+                return jnp.moveaxis(lerp(a, bb, fr[..., None]), -1, 1)
+            return lerp(a, bb, fr)
+
+        def adv(cur, n_c):
+            b, o = cur
+            neg = o < 0  # trunc-form -> floor-form before advancing
+            return device_advance(
+                b - neg.astype(jnp.int32), jnp.where(neg, o + 1.0, o),
+                jnp.int32(n_c), ds_int, f_hi, f_lo,
+            )  # floor-form o in [0,1) is valid trunc-form
+
+        samples = chunked_frames(ev, adv, (state["base"], state["frac"]), n)
         base2, frac2 = device_advance(
             state["base"], state["frac"], count, ds_int, f_hi, f_lo,
         )
@@ -522,8 +340,8 @@ class _FramesDR:
         )
 
     # -- device-resident Seek mode (frames.rs:209-214) -------------------------
-    # The spatial seek path samples at cursor + t0 + j*dt per ear; positions
-    # land on the same strided-resample kernel as dr_render.  The sample
+    # The spatial seek path samples at cursor + t0 + j*dt per ear, with the
+    # same exact arena gather as dr_render.  The sample
     # shift t0*rate uses the split-product (ops/_dev.py::warp_shift) so f32
     # stays within ~1e-5 samples of the host path's f64 cursor shifts.
 
@@ -555,28 +373,18 @@ class _FramesDR:
         ds = dt * state["rate"][:, None]
         ds = jnp.where(jnp.abs(ds - 1.0) <= EPS32, 1.0, ds)
         ds_int, f_hi, f_lo = device_split_ds(ds)
-        if not getattr(self, "_pool_ds_small", True):
-            # heavy downsampling: exact whole-arena gather (frames.rs:176-201
-            # resamples at any ratio; aliasing and all)
-            tr, fr = exact_positions(o0, ds_int, f_hi, f_lo, n, signed=True)
-            s = base2[:, :, None] + tr
-            arena = ddata["arena"]
-            off = state["off"][:, None, None]
-            length = state["length"][:, None, None]
-            a = _arena_get(arena, off, length, s)
-            b = _arena_get(arena, off, length, s + 1)
-            return lerp(a, b, fr)
         dsf = (ds_int.reshape(-1), f_hi.reshape(-1), f_lo.reshape(-1))
-        goff = jnp.repeat(state["goff"], E)
-        lo = jnp.repeat(state["goff"] - ARENA_GUARD, E)
-        hi = jnp.repeat(state["goff"] + state["length"], E)
+        arena = ddata["arena"]
+        off = jnp.repeat(state["off"], E)[:, None]
+        length = jnp.repeat(state["length"], E)[:, None]
 
         def ev(cur, n_c):
+            # exact whole-arena gather (frames.rs:176-201, any ratio)
             b, o = cur
-            return _dr_resample(
-                ddata["garena"], goff + b, lo, hi, o, *dsf, n_c,
-                DS=_pool_tier(self),
-            )
+            tr, fr = exact_positions(o, *dsf, n_c, signed=True)
+            s = b[:, None] + tr
+            a = _arena_get(arena, off, length, s)
+            return lerp(a, _arena_get(arena, off, length, s + 1), fr)
 
         def adv(cur, n_c):
             b, o = cur

@@ -1,7 +1,7 @@
 """Host-side float helpers.
 
 The reference (oddio) advances all sequential signal state (cursors, ramps,
-geometry) in scalar f32/f64 on the audio thread.  In this TPU rebuild, that
+geometry) in scalar f32/f64 on the audio thread.  In this rebuild, that
 state lives on the *host* in small numpy arrays (one lane per voice), advanced
 once per block with the exact same IEEE arithmetic, while the device renders
 each block as a pure function of the resulting per-block parameters.

@@ -1,11 +1,11 @@
-"""The core Signal protocol, redesigned for TPU batch rendering.
+"""The core Signal protocol, redesigned for batch rendering on an accelerator.
 
 Reference: /root/reference/src/signal.rs:14-28 defines oddio's pull-based
 ``Signal`` trait (``sample(&mut self, interval, out)``), with combinators
 wrapping each other and a lock-free control plane mutating parameters from
 another thread.
 
-TPU redesign (see SURVEY.md §7): a Signal here is a *template* with three
+Batch redesign (see SURVEY.md §7): a Signal here is a *template* with three
 separated aspects:
 
 * **host state** — small numpy arrays (shape = ``batch``), e.g. f64 playback
@@ -16,11 +16,11 @@ separated aspects:
   write host values that take effect at the next block boundary, exactly like
   oddio's atomics/swap channels are observed once per ``sample`` call.
 * **device state** — jnp arrays for data-plane state that must live on the
-  TPU (delay rings, stream buffers, AGC accumulators).
+  device (delay rings, stream buffers, AGC accumulators).
 * **render** — a pure JAX function ``(dstate, ddata, params, n) -> (dstate',
   block)`` over fixed-size frame blocks, written unbatched and ``vmap``-ed
   over the voice axis by engine pools.  Blocks are channels-first ``(C, n)``
-  so the frame axis lands on TPU lanes.
+  so the frame axis is the minor (contiguous) axis.
 
 ``Seek`` (signal.rs:48-58) maps to ``seekable`` signals which additionally
 expose a *pure* ``host_params_at`` (parameters for a time-shifted, rate-warped
@@ -62,7 +62,7 @@ class ControlBlock:
 
     def rebind_dr(self, pool, slot, gen, path):
         """Route writes into a device-resident pool as sparse control deltas
-        (the TPU analogue of the reference's shared atomics): the spec's own
+        (the batch analogue of the reference's shared atomics): the spec's own
         host field doubles as the handle-readable mirror."""
         self._dr = (pool, slot, gen, path)
 
@@ -316,7 +316,7 @@ class Signal:
         self.batch = (new_V,)
 
     # -- device-resident (dr) mode ---------------------------------------------
-    # Sources whose entire state can live on the TPU implement these; engines
+    # Sources whose entire state can live on the device implement these; engines
     # then run the whole control plane in-graph, with the host shipping only
     # sparse control deltas.  Round-1 scope: chains that are static after
     # play() (sources + fixed filters).  ``state`` pytrees are batched (V,...).
@@ -326,28 +326,16 @@ class Signal:
     #: dr state, updated via sparse control deltas (core/drctrl.py)
     _dr_ctrl_fields = ()
 
-    #: subset of _dr_ctrl_fields whose writes change how fast a sampler in
-    #: the chain steps through its source (speed.rs); DR pools watching
-    #: these re-derive their downsampling bound (host_ds_bound)
-    _dr_ds_fields = ()
-
-    def host_ds_bound(self, interval):
-        """Upper bound on the per-frame source step (samples/frame) any
-        sampler in this chain reads at, given ``interval`` seconds/frame
-        and the chain's CURRENT control mirrors.  DR pools use it to pick
-        the windowed resample kernel (ds <= RESAMPLE_DSMAX) or the exact
-        whole-arena gather for heavier downsampling
-        (frames.rs:176-201 resamples at any ratio)."""
-        return max(
-            (c.host_ds_bound(interval) for c in self.children().values()),
-            default=0.0,
-        )
+    #: subset of _dr_ctrl_fields whose writes change the interval the
+    #: chain's inner nodes see (speed.rs); DR pools watching these
+    #: re-derive their AGC bound (host_ema_bound)
+    _dr_interval_fields = ()
 
     def host_ema_bound(self, interval):
         """Upper bound on interval/tau over any Adapt in this chain, given
         the chain's current control mirrors; DR pools use it to gate the
-        closed-form AGC kernel (ops/pallas_agc.py) vs the associative-scan
-        fallback, tracked exactly like host_ds_bound."""
+        closed-form AGC (ops/adapt.py::ema_gain_closed) vs the
+        associative-scan fallback."""
         return max(
             (c.host_ema_bound(interval) for c in self.children().values()),
             default=0.0,
@@ -490,6 +478,6 @@ class Signal:
 
     def render(self, dstate, ddata, params, n):
         """Pure JAX function: returns ``(dstate', block)`` with block ``(C, n)``
-        f32 (channels-first so frames land on TPU lanes). Must be traceable
+        f32 (channels-first so frames are the minor axis). Must be traceable
         under jit and vmap; ``n`` is static."""
         raise NotImplementedError

@@ -2,7 +2,7 @@
 
 Reference: /root/reference/src/smooth.rs — ``Smoothed`` linearly ramps toward
 a target over a proportional progress, re-settable mid-ramp without
-discontinuity (smooth.rs:26-78).  In the TPU build the same (prev, next,
+discontinuity (smooth.rs:26-78).  In the batch build the same (prev, next,
 progress) triple is host state whose per-frame evaluation happens in closed
 form inside kernels (see ops/gain.py); this standalone class is provided for
 API parity and host-side use.

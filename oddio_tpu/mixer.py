@@ -7,7 +7,7 @@ mixer.rs:102-105), then sample each voice and accumulate.  The lock-free
 ``Set``/``spsc`` plumbing (set.rs, spsc.rs) exists to do this without locks
 on the audio thread.
 
-TPU redesign (SURVEY.md §7): voices of equal *archetype* (graph structure)
+Batch redesign (SURVEY.md §7): voices of equal *archetype* (graph structure)
 live in a fixed-capacity pool of stacked host/device state with an active
 mask.  Rendering is ``vmap`` over the voice axis plus a masked sum — one
 fused reduction instead of a pointer-chasing loop.  ``play`` claims a slot
@@ -159,8 +159,8 @@ class PoolSingleton(Pool):
 
 class PoolDR(DRCtrlMixin):
     """Device-resident voice pool: mask/stop/finish tracking and the inner
-    chain's whole state live on the TPU; the host ships only sparse play,
-    stop and control-field deltas (the TPU-native analogue of mixer.rs's Set
+    chain's whole state live on the device; the host ships only sparse play,
+    stop and control-field deltas (the device-resident analogue of mixer.rs's Set
     messages + the filters' shared atomics) and observes handle state at
     sync points.  Mirrors _BufferedPoolDR (spatial.py); requires a mono,
     dr-capable inner chain."""
@@ -326,8 +326,8 @@ class PoolDR(DRCtrlMixin):
         render is then a pure device scan iteration."""
         return (not self.force_deltas and not self.pending_plays
                 and not self.pending_stops and self._fade_quiet
-                and not self._ds_dirty
-                and getattr(self, "_ds_interval", None) == iv
+                and not self._ema_dirty
+                and getattr(self, "_ema_interval", None) == iv
                 and not self._ctrl_pending_any()
                 and not any(l._dirty for l in self._ingest_leaves))
 
@@ -363,9 +363,9 @@ class PoolDR(DRCtrlMixin):
             # cannot change, and the only per-block side effect — the
             # stream-cursor mirror tick — is DEFERRED by the leaves (O(1)
             # debt, replayed exactly at the first mirror read).  This keeps
-            # idle pool blocks at Python-compare cost: a 16-scene ScenePack
-            # was spending 0.8 ms/block (of a 10.7 ms audio block) in
-            # per-block numpy mirror ticks before this path existed.
+            # idle pool blocks at Python-compare cost: per-block numpy
+            # mirror ticks were a large share of a 16-scene ScenePack's
+            # audio block before this path existed.
             self._idle_apply(1)
             return params
         if len(self.pending_plays) > self.k_play:
@@ -412,10 +412,10 @@ class PoolDR(DRCtrlMixin):
         # device-side progress advance — an n-based tick would run the host
         # mirror ahead and flip fade banks out of sync with the device
         self._fade_tick(params if has else None, self._interval, self._count)
-        # the read-path flag syncs AFTER fade releases: a shipped fade row
-        # renders THIS block, so a heavy (ds > tier) incoming spec must
-        # widen the windows before the step is traced, not one block late
-        self._ds_small = self._ds_flag_sync(self._interval)
+        # the AGC-path flag syncs AFTER fade releases: a shipped fade row
+        # renders THIS block, so its Adapt taus must gate the step traced
+        # for it, not one block late
+        self._ema_flag_sync(self._interval)
         # stream ingest + cursor-mirror shadow (order mirrors render:
         # ingest grows len, then the advance releases consumed samples)
         if self.proto.batch:
@@ -551,8 +551,6 @@ class Mixer(Signal):
                 getattr(p, "_count", None),
                 getattr(p, "_has_play", False),
                 getattr(p, "_has_stop", False),
-                getattr(p, "_ds_small", True),
-                getattr(p, "_ds_tier", 4),
             )
             for p in self._pools.values()
         )
@@ -734,10 +732,6 @@ class Mixer(Signal):
                         jax.lax.axis_index(ax) == 0, block1, 0.0
                     )
                 blocks = block1[None]
-            elif (rb := getattr(pool.sig, "render_batched", None)) is not None:
-                # pool-level batched render: lets signals with Pallas read
-                # kernels (Stream) run them once per pool, outside the vmap
-                dsub, blocks = rb(dstate[pool.name], dd, ps["p"], n)
             else:
                 dsub, blocks = jax.vmap(
                     lambda d, p: pool.sig.render(d, dd, p, n)

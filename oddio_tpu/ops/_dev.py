@@ -24,7 +24,7 @@ def split_ds(ds):
     ``(ds_int:int32, f_hi:f32, f_lo:f32)`` with ``ds == ds_int + f_hi + f_lo``
     exactly, ``f_hi`` holding at most 12 mantissa bits of the fraction.
 
-    TPUs have no f64, but playback cursors advance by ``i*ds`` for i up to the
+    Device f64 is slow or absent, but playback cursors advance by ``i*ds`` for i up to the
     block size; computing that product in plain f32 costs up to ~n*eps sample
     positions.  With this split, ``i*ds_int`` is exact integer math and
     ``i*f_hi`` is an exact f32 product for i < 4096, so device cursor

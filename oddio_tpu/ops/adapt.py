@@ -6,25 +6,24 @@ moving average of the squared summed-channel level with time constant ``tau``
 pulling the average peak into [low, high], capped at ``max_gain``
 (adapt.rs:76-86).
 
-TPU form: the per-frame EMA is a LINEAR recurrence (``avg' = avg*(1-a) +
+Device form: the per-frame EMA is a LINEAR recurrence (``avg' = avg*(1-a) +
 a*s^2`` — an affine map per frame), so instead of a 512-step sequential
-``lax.scan`` that leaves the VPU idle across the frame axis, it runs as a
-log-depth ``lax.associative_scan`` over the per-frame affine maps
-``(m, b) = (1-a_i, a_i*s_i^2)`` composed as ``(m1*m2, b1*m2 + b2)``.  The
-gain math is elementwise from the exclusive-scan carries.  Numerics match
-the sequential order up to tree-reassociation rounding (~1e-6 relative;
-the golden contract is 1e-5 — reference adapt.rs:69-88 itself rounds
-per frame).  A ``count`` mask keeps the carry exact when fewer frames are
-actually consumed (spatial ring writers): masked frames compose as the
-identity map, freezing the carry exactly like the sequential path.
+``lax.scan`` it runs as a log-depth ``lax.associative_scan`` over the
+per-frame affine maps ``(m, b) = (1-a_i, a_i*s_i^2)`` composed as
+``(m1*m2, b1*m2 + b2)``.  The gain math is elementwise from the
+exclusive-scan carries.  Numerics match the sequential order up to
+tree-reassociation rounding (~1e-6 relative; the golden contract is 1e-5 —
+reference adapt.rs:69-88 itself rounds per frame).  A ``count`` mask keeps
+the carry exact when fewer frames are actually consumed (spatial ring
+writers): masked frames compose as the identity map, freezing the carry
+exactly like the sequential path.
 
-In DR pools the scan is further replaced by the fused closed-form Mosaic
-kernel (``ops/pallas_agc.py``) whenever the pool-tracked tau bound holds:
-the scan's ~300-op lane-slicing subgraph is latency-bound on real TPU (a
-second 32-slot Adapt pool cost a 16-scene pack ~0.36 ms/block,
-tools/r5_probe8.py) while the kernel is one program.  The
-``_pool_ema_fast`` archetype flag gates it; this scan path remains the
-fallback for pathological taus and non-128-multiple block sizes.
+In DR pools the scan is replaced by a closed form (``ema_gain_closed``)
+whenever the pool-tracked tau bound holds: the scan's odd/even lane slicing
+expands to ~300 ops per Adapt instance, while the closed form is a handful
+of elementwise ops and one cumsum.  The ``_pool_ema_fast`` archetype flag
+gates it; this scan path remains the fallback for pathological taus and
+blocks longer than EMA_NMAX.
 """
 
 from __future__ import annotations
@@ -39,6 +38,13 @@ from ..core.signal import Signal
 __all__ = ["Adapt", "AdaptOptions"]
 
 _SQRT2 = np.sqrt(np.float32(2.0), dtype=np.float32)
+
+#: frame bound the pools' closed-form gate is computed at (blocks are
+#: chunked to <= 512 frames everywhere; see ops/_dev.py::chunked_frames)
+EMA_NMAX = 512
+#: max EMA_NMAX * interval/tau the closed form accepts: exp arguments stay
+#: in [-32, 32] (no overflow, <= 6e-7 gain error vs the sequential oracle)
+EMA_GATE = 32.0
 
 
 def _ema_gain(avg0, s, alpha, count, low, high, max_gain, n):
@@ -82,6 +88,41 @@ def _ema_gain(avg0, s, alpha, count, low, high, max_gain, n):
         jnp.where(avg_peak > high[..., None], high[..., None] / avg_peak, 1.0),
     )
     carry = mi[..., -1] * avg0 + bi[..., -1]
+    return gain, carry
+
+
+def ema_gain_closed(avg0, s, alpha, count, low, high, max_gain, n):
+    """The EMA + gain pipeline of ``_ema_gain`` in closed form, no scan::
+
+        c_i    = min(i+1, count)          live frames through i (count
+                                          freezes the carry, adapt.rs:69-75)
+        M_i    = exp(c_i * log1p(-a))     the decay prefix, elementwise
+        csum   = cumsum(live * a*s^2/M)
+        prev_i = M_{i-1} * (avg0 + csum_{i-1})
+        avg_i  = a*s_i^2 + (1-a)*prev_i,  gain_i as adapt.rs:76-86
+
+    Valid while the M factors stay in f32 range: callers gate it on
+    ``EMA_NMAX * interval/tau <= EMA_GATE`` and ``n <= EMA_NMAX``."""
+    s2 = s * s
+    i_n = jnp.arange(n, dtype=jnp.int32)
+    live = i_n < count[..., None]
+    a = alpha[..., None]
+    c = jnp.minimum(i_n + 1, count[..., None]).astype(jnp.float32)
+    lg = jnp.log1p(-a)
+    M = jnp.exp(c * lg)
+    terms = jnp.where(live, (a * s2) / M, 0.0)
+    csum = jnp.cumsum(terms, axis=-1)
+    carry = M[..., -1] * (avg0 + csum[..., -1])
+    prev_c = jnp.minimum(i_n.astype(jnp.float32), count[..., None].astype(jnp.float32))
+    prev = jnp.exp(prev_c * lg) * (avg0[..., None] + (csum - terms))
+    avg2 = s2 * a + prev * (1.0 - a)
+    avg_peak = jnp.sqrt(avg2) * _SQRT2
+    lo = low[..., None]
+    gain = jnp.where(
+        avg_peak < lo,
+        jnp.minimum(lo / avg_peak, max_gain[..., None]),
+        jnp.where(avg_peak > high[..., None], high[..., None] / avg_peak, 1.0),
+    )
     return gain, carry
 
 
@@ -149,13 +190,13 @@ class Adapt(Signal):
 
     def host_ema_bound(self, interval):
         """Max interval/tau in this chain (DR pools gate the closed-form
-        AGC kernel on EMA_NMAX * bound <= EMA_GATE; ops/pallas_agc.py)."""
+        AGC on EMA_NMAX * bound <= EMA_GATE; see ema_gain_closed)."""
         tau = float(np.min(self.tau)) if getattr(self.tau, "ndim", 0) else float(self.tau)
         own = float(np.float32(interval)) / max(tau, 1e-30)
         return max(own, self.inner.host_ema_bound(interval))
 
     def _arch_extra(self):
-        # the pool-stamped closed-form-kernel flag is trace-relevant
+        # the pool-stamped closed-form flag is trace-relevant
         return (bool(getattr(self, "_pool_ema_fast", False)),)
 
     def render(self, dstate, ddata, params, n):
@@ -211,35 +252,15 @@ class Adapt(Signal):
         # frame-generic: the level is the summed-channel frame (adapt.rs:73),
         # one gain per frame scales every channel (adapt.rs:84-86)
         s = samples if samples.ndim == 2 else jnp.sum(samples, axis=1)
-        if (
-            getattr(self, "_pool_ema_fast", False)
-            and n % 128 == 0
-            and n <= 512
-        ):
-            # pool-proven tau bound: the fused closed-form kernel replaces
-            # the associative scan's ~300-op subgraph (see ops/pallas_agc)
-            from .pallas_agc import (agc_gains, ema_gain_closed,
-                                     pack_agc_scalars)
-
-            if jax.default_backend() == "tpu":
-                scal = pack_agc_scalars(
-                    state["avg"], alpha, cnt,
-                    state["low"], state["high"], state["max_gain"],
-                )
-                gain, avg = agc_gains(s, scal, n=n, interpret=False)
-            else:
-                # same closed form as plain XLA ops: interpret-mode pallas
-                # would re-run the kernel body through the interpreter
-                # every block (CPU suite cost), for identical math
-                gain, avg = ema_gain_closed(
-                    state["avg"], s, alpha, cnt,
-                    state["low"], state["high"], state["max_gain"], n,
-                )
-        else:
-            gain, avg = _ema_gain(
-                state["avg"], s, alpha, cnt,
-                state["low"], state["high"], state["max_gain"], n,
-            )
+        ema = (
+            ema_gain_closed
+            if getattr(self, "_pool_ema_fast", False) and n <= EMA_NMAX
+            else _ema_gain
+        )
+        gain, avg = ema(
+            state["avg"], s, alpha, cnt,
+            state["low"], state["high"], state["max_gain"], n,
+        )
         st = dict(state)
         st["avg"], st["inner"] = avg, d2
         g = gain if samples.ndim == 2 else gain[:, None, :]

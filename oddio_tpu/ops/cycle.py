@@ -4,7 +4,7 @@ Reference: /root/reference/src/cycle.rs — loops ``Frames`` end-to-end with
 linear interpolation across the seam (cycle.rs:26-53); ``Seek`` wraps the f64
 cursor with ``rem_euclid`` (cycle.rs:56-60).
 
-TPU form: like FramesSignal, the f64 sample cursor is host state; the device
+Device form: like FramesSignal, the f64 sample cursor is host state; the device
 computes positions ``(base + trunc(offset0 + i*ds)) mod len`` and gathers the
 seam pair ``(data[x], data[(x+1) mod len])`` from the arena.  The reference
 rebases its f32 offset in-loop when it walks past the end (cycle.rs:40-47);
@@ -26,7 +26,7 @@ __all__ = ["Cycle"]
 
 class Cycle(Signal):
     seekable = True
-    _host_fields = ("cursor", "off", "length", "rate", "loff")
+    _host_fields = ("cursor", "off", "length", "rate")
 
     def __init__(self, frames):
         super().__init__()
@@ -35,21 +35,15 @@ class Cycle(Signal):
         self.off[()] = frames.offset
         self.length[()] = len(frames)
         self.rate[()] = frames._rate
-        # looped (seam-replicated) region for the DR resample kernel
-        self.loff[()] = frames.loop_off()[0] if frames.channels == 1 else 0
 
     def _alloc_host(self, batch):
         self.cursor = full(batch, 0.0, np.float64)
         self.off = full(batch, 0, np.int32)
         self.length = full(batch, 1, np.int32)
         self.rate = full(batch, 1.0, np.float64)
-        self.loff = full(batch, 0, np.int32)
 
     def _arch_extra(self):
         return (self.channels,)
-
-    def host_ds_bound(self, interval):
-        return float(np.max(np.float32(interval) * self.rate.astype(np.float32)))
 
     def _params_from_cursor(self, cursor, interval):
         # cycle.rs:27-30: ds = interval * rate() as f32; base = cursor as usize
@@ -100,10 +94,7 @@ class Cycle(Signal):
         )
 
     def _own_device_data(self):
-        d = {"arena": _arena(self.channels).device()}
-        if self.channels == 1:
-            d["garena"] = _arena(1).device_rows()
-        return d
+        return {"arena": _arena(self.channels).device()}
 
     # -- device-resident mode ------------------------------------------------
 
@@ -115,7 +106,6 @@ class Cycle(Signal):
             "base": np.zeros(V, np.int32),
             "frac": np.zeros(V, np.float32),
             "off": np.zeros(V, np.int32),
-            "loff": np.zeros(V, np.int32),
             "length": np.ones(V, np.int32),
             "rate": np.ones(V, np.float32),
             "r_hi": np.ones(V, np.float32),
@@ -132,7 +122,6 @@ class Cycle(Signal):
             "base": np.int32(np.clip(base, 0, 2**30)),
             "frac": np.float32(self.cursor - base),
             "off": np.int32(self.off[()]),
-            "loff": np.int32(self.loff[()]),
             "length": np.int32(self.length[()]),
             "rate": np.float32(self.rate[()]),
             "r_hi": _top12_np(self.rate[()]),
@@ -152,43 +141,30 @@ class Cycle(Signal):
         return device_split_ds(state["rate"] * interval)
 
     def dr_render(self, state, ddata, interval, n, count):
-        from ..core.frames import _dr_resample, _pool_tier
         from ._dev import chunked_frames, device_advance
 
         ds_int, f_hi, f_lo = self._dr_step(state, interval)
-        if "garena" in ddata and getattr(self, "_pool_ds_small", True):
-            # looped region: data replicated past the seam, so each
-            # <=512-frame chunk's walk (and the seam lerp pair,
-            # cycle.rs:34-47) never wraps; cursors re-wrap between chunks
-            lo = state["loff"] - 1
-            hi = state["loff"] + state["length"] - 1
+        arena = ddata["arena"]
+        off = state["off"][:, None]
+        length = state["length"][:, None]
 
-            def ev(cur, n_c):
-                b, o = cur
-                return _dr_resample(
-                    ddata["garena"], state["loff"] + b, lo, hi, o,
-                    ds_int, f_hi, f_lo, n_c, DS=_pool_tier(self),
-                )
+        def ev(cur, n_c):
+            # exact mod-length arena gather with the seam lerp pair
+            # (cycle.rs:34-47)
+            b, o = cur
+            tr, fr = exact_positions(o, ds_int, f_hi, f_lo, n_c)
+            x = jnp.mod(b[:, None] + tr, length)
+            a = jnp.take(arena, off + x, axis=0, mode="clip")
+            bb = jnp.take(arena, off + jnp.mod(x + 1, length), axis=0,
+                          mode="clip")
+            return lerp(a, bb, fr)
 
-            def adv(cur, n_c):
-                b, o = cur
-                b2, o2 = device_advance(b, o, jnp.int32(n_c), ds_int, f_hi, f_lo)
-                return jnp.mod(b2, state["length"]), o2
+        def adv(cur, n_c):
+            b, o = cur
+            b2, o2 = device_advance(b, o, jnp.int32(n_c), ds_int, f_hi, f_lo)
+            return jnp.mod(b2, state["length"]), o2
 
-            samples = chunked_frames(
-                ev, adv, (state["base"], state["frac"]), n
-            )
-        else:
-            tr, fr = exact_positions(state["frac"], ds_int, f_hi, f_lo, n)
-            length = state["length"][:, None]
-            x = jnp.mod(state["base"][:, None] + tr, length)
-            arena = ddata["arena"]
-            a = jnp.take(arena, state["off"][:, None] + x, axis=0, mode="clip")
-            b = jnp.take(
-                arena, state["off"][:, None] + jnp.mod(x + 1, length), axis=0,
-                mode="clip",
-            )
-            samples = lerp(a, b, fr)
+        samples = chunked_frames(ev, adv, (state["base"], state["frac"]), n)
         # cursor end state matches the host path: position of the last frame
         # reduced mod len, plus one step (cycle.rs:40-47 rebase semantics)
         cm1 = jnp.maximum(count - 1, 0)
@@ -209,9 +185,8 @@ class Cycle(Signal):
         return jnp.zeros(state["base"].shape, dtype=bool)
 
     # -- device-resident Seek mode (cycle.rs:56-60) -----------------------------
-    # Cursor shifts wrap rem_euclid; positions ride the looped region so the
-    # warped in-block walk never wraps.  Shares the cursor-shift machinery
-    # with FramesSignal (core/frames.py::_FramesDR).
+    # Cursor shifts wrap rem_euclid; positions wrap mod length.  Shares the
+    # cursor-shift machinery with FramesSignal (core/frames.py::_FramesDR).
 
     _dr_wrap = True
 
@@ -234,35 +209,24 @@ class Cycle(Signal):
         return _FramesDR.dr_advance(self, state, seconds)
 
     def dr_warp_render(self, state, ddata, t0, dt, n):
-        from ..core.frames import _dr_resample, _pool_tier
         from ._dev import chunked_frames, device_advance, device_split_ds
 
         V, E = t0.shape
         base2, o0 = self._dr_warp_cursor(state, t0, wrap=True)
         ds = dt * state["rate"][:, None]
-        ds_int, f_hi, f_lo = device_split_ds(ds)
-        if not getattr(self, "_pool_ds_small", True):
-            # heavy downsampling: exact mod-length arena gather
-            tr, fr = exact_positions(o0, ds_int, f_hi, f_lo, n)
-            length = state["length"][:, None, None]
-            x = jnp.mod(base2[:, :, None] + tr, length)
-            arena = ddata["arena"]
-            off = state["off"][:, None, None]
-            a = jnp.take(arena, off + x, axis=0, mode="clip")
-            b = jnp.take(arena, off + jnp.mod(x + 1, length), axis=0, mode="clip")
-            return lerp(a, b, fr)
-        dsf = (ds_int.reshape(-1), f_hi.reshape(-1), f_lo.reshape(-1))
-        loff = jnp.repeat(state["loff"], E)
+        dsf = tuple(x.reshape(-1) for x in device_split_ds(ds))
+        arena = ddata["arena"]
+        off = jnp.repeat(state["off"], E)[:, None]
         length = jnp.repeat(state["length"], E)
-        lo = loff - 1
-        hi = loff + length - 1
 
         def ev(cur, n_c):
             b, o = cur
-            return _dr_resample(
-                ddata["garena"], loff + b, lo, hi, o, *dsf, n_c,
-                DS=_pool_tier(self),
-            )
+            tr, fr = exact_positions(o, *dsf, n_c)
+            x = jnp.mod(b[:, None] + tr, length[:, None])
+            a = jnp.take(arena, off + x, axis=0, mode="clip")
+            bb = jnp.take(arena, off + jnp.mod(x + 1, length[:, None]),
+                          axis=0, mode="clip")
+            return lerp(a, bb, fr)
 
         def adv(cur, n_c):
             b, o = cur

@@ -7,7 +7,7 @@ swap channel (fader.rs:86-93).  A fade must complete before the next begins
 ``out = sqrt(1-p)*old + sqrt(p)*new`` per frame (fader.rs:52-65), and on
 completion the new signal replaces the old (fader.rs:66-70).
 
-TPU forms:
+Device forms:
 
 * **standalone** — fades are a *graph-structure event*: idle renders one
   child, fading renders both with the closed-form progress ramp fused in.

@@ -5,7 +5,7 @@ a constant factor derived from decibels; ``Gain`` (gain.rs:58-127) follows a
 shared control value with a 0.1 s linear ramp (``SMOOTHING_PERIOD``,
 gain.rs:163) driven by the ``Smoothed`` helper (smooth.rs:26-78).
 
-TPU form: the ramp state (prev, next, progress) is host state; each block the
+Device form: the ramp state (prev, next, progress) is host state; each block the
 device applies ``gain_i = prev + min(progress0 + i*inc, 1) * (next - prev)``
 — the closed form of the reference's per-frame advance (gain.rs:118-121,
 smooth.rs:47-49).  The closed form differs from the reference's sequential

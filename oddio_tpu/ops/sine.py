@@ -5,7 +5,7 @@ per frame (sine.rs:34-40) and wraps the phase modulo TAU after each block for
 numerical stability no matter how long it plays (sine.rs:25-28).  The phase
 wrap uses Rust ``%`` (fmod) semantics.
 
-TPU form: the block is a pure function of (interval, freq, phase); the f32
+Device form: the block is a pure function of (interval, freq, phase); the f32
 phase is host state advanced per block.
 """
 

@@ -2,7 +2,7 @@
 
 Reference: /root/reference/src/speed.rs — multiplies the ``interval`` passed
 to the inner signal by a dynamically adjustable factor (speed.rs:32-36),
-un-smoothed.  In the TPU build, interval is a per-voice host array, so this
+un-smoothed.  In the batch build, interval is a per-voice host array, so this
 is a pure host-side transform on the parameter flow.
 """
 
@@ -61,12 +61,7 @@ class Speed(Signal):
     # warped interval in-graph every block (speed.rs:32-36).
 
     _dr_ctrl_fields = ("speed",)
-    _dr_ds_fields = ("speed",)
-
-    def host_ds_bound(self, interval):
-        return self.inner.host_ds_bound(
-            interval * abs(float(np.float32(self.speed[()])))
-        )
+    _dr_interval_fields = ("speed",)
 
     def host_ema_bound(self, interval):
         # the factor warps the inner timebase (speed.rs:32-36), so inner

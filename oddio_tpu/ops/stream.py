@@ -9,7 +9,7 @@ dropped and the buffer drained (stream.rs:88-91).
 Like the reference's ``Stream<T>`` (stream.rs:6), streams are frame-generic:
 ``channels=C`` buffers (frame, C) data and renders a (C, n) block.
 
-TPU redesign: the spsc ring becomes a device-resident ring tensor per stream
+Device form: the spsc ring becomes a device-resident ring tensor per stream
 voice.  The control half appends frames into a host-side pending list; each
 block the pending chunk ships to the device and is scattered into the ring
 (the host→device copy *is* the producer side of the channel), while the host
@@ -42,11 +42,9 @@ class Stream(Signal):
         values bound per-block transfer for huge pools)."""
         super().__init__()
         self.size = int(size)
-        # internal ring modulus, row-padded so pools can read through the
-        # row-window resample kernel AND ingest through the strip-place
-        # kernel (one spare row keeps a wrapping write inside its rotated
-        # row strip); capacity checks (free/write) use the logical
-        # ``size``, so buffering semantics are unchanged
+        # internal ring modulus, padded to whole 128-sample rows with room
+        # for the zero-termination column; capacity checks (free/write) use
+        # the logical ``size``, so buffering semantics are unchanged
         self.size_pad = -(-(self.size + 1) // 256) * 256 + 256
         self.max_write = int(max_write_per_block or size)
         self.channels = int(channels)
@@ -106,9 +104,7 @@ class Stream(Signal):
         # renderer keys steps on the archetype after preparing, so the two
         # variants get their own jitted programs.
         return (self.size, self.max_write, self.channels,
-                getattr(self, "_has_write", False),
-                getattr(self, "_ds_small", True),
-                getattr(self, "_ds_tier", 4))
+                getattr(self, "_has_write", False))
 
     def write_slot(self, i, spec, pool, gen):
         super().write_slot(i, spec, pool, gen)
@@ -146,10 +142,7 @@ class Stream(Signal):
     def _mark_dirty(self, idx):
         self._dirty.add(0 if self.batch == () else int(idx))
 
-    # ring device state is ROWS-NATIVE (C*R, 128): the 128-lane minor dim
-    # is the TPU's physically linear layout, so the pool-level row views
-    # below are free bitcasts (a (C, size) minor-dim layout would relayout
-    # the whole ring on every view and sublane-pad C=1 eightfold)
+    # ring device state is (C*R, 128); the (C, size) view is a free reshape
 
     @property
     def _rows(self):
@@ -207,18 +200,6 @@ class Stream(Signal):
         self.stopping = self.stopping | self.closed  # stream.rs:76-78
 
         ds = (interval * self.rate.astype(np.float32)).astype(np.float32)
-        # kernel-path eligibility (trace-static via _arch_extra)
-        from .pallas_ring import RESAMPLE_DSMAX
-
-        dsmax = float(np.max(ds)) if ds.size else 1.0
-        self._ds_small = bool(dsmax <= RESAMPLE_DSMAX)
-        # window-sizing tier (trace-static via _arch_extra): size the read
-        # kernel's row window for the actual step bound, not the worst
-        # case; 1e-5 tolerance absorbs the one-ulp f32 wobble of
-        # rate-matched ratios (window formulas carry >= 3 samples slack)
-        self._ds_tier = (
-            1 if dsmax <= 1.0 + 1e-5 else 2 if dsmax <= 2.0 else 4
-        )
         params = {
             "t": self.t.copy(),
             "ds": ds,
@@ -248,10 +229,8 @@ class Stream(Signal):
         return self.stopping & (self.t == self.buflen.astype(np.float32))
 
     def _write_one(self, ring, params):
-        """Scatter one voice's newly shipped chunk (Receiver::update) —
-        standalone streams and huge one-shot pool writes only; sustained
-        pool ingest rides _write_pool.  ``ring`` is the rows-native state;
-        the flat round trip is confined to this rare path."""
+        """Scatter one voice's newly shipped chunk at its write cursor
+        (Receiver::update, stream.rs:24-69); pools vmap it."""
         size = self.size_pad
         flat = ring.reshape(self.channels, size)
         j = jnp.arange(params["chunk"].shape[-1])
@@ -259,38 +238,6 @@ class Stream(Signal):
         idx = jnp.where(j < params["wcount"], idx, size)  # drop overflow
         flat = flat.at[:, idx].set(params["chunk"], mode="drop")
         return flat.reshape(ring.shape)
-
-    def _write_pool(self, ring, params):
-        """Pool-level ingest: each (voice, channel) row's shipped chunk is
-        placed at its write cursor through the row-strip kernel — row
-        gather + strip_place + row scatter, no elementwise scatter on the
-        ingest path (stream.rs:24-69's Receiver::update, batched)."""
-        import jax
-
-        from .pallas_ring import strip_place
-
-        V = ring.shape[0]
-        C = self.channels
-        ROWB = 128
-        rpv = self._rows
-        mw = params["chunk"].shape[-1]
-        view = ring.reshape(V * C * rpv, ROWB)
-        n_rows = min((ROWB - 1 + mw - 1) // ROWB + 1, rpv)
-        wrow = params["wpos"] // ROWB
-        extra = params["wpos"] - wrow * ROWB
-        vcbase = jnp.arange(V * C, dtype=jnp.int32) * rpv
-        wr = jnp.repeat(wrow, C)
-        idx = (
-            vcbase[:, None] + jnp.mod(wr[:, None] + jnp.arange(n_rows), rpv)
-        ).reshape(-1)
-        strips = jnp.take(view, idx, axis=0).reshape(V * C, n_rows * ROWB)
-        strips = strip_place(
-            strips, params["chunk"].reshape(V * C, mw),
-            jnp.repeat(extra, C), jnp.repeat(params["wcount"], C),
-            interpret=jax.default_backend() != "tpu",
-        )
-        view = view.at[idx].set(strips.reshape(-1, ROWB))
-        return view.reshape(ring.shape)
 
     def render(self, dstate, ddata, params, n):
         ring = dstate["ring"]  # (C*R, 128) unbatched (vmapped in pools)
@@ -311,89 +258,6 @@ class Stream(Signal):
         b = get(x0 + 1)
         out = lerp(a, b, (s - jnp.trunc(s))[None, :])
         return {"ring": ring}, out
-
-    def render_batched(self, dstate, ddata, params, n):
-        """Pool-level batched render: the ring read runs through the strided
-        row-window resample kernel once per pool instead of an elementwise
-        gather per voice (ops/pallas_ring.py).  Falls back to the vmapped
-        per-voice path for stereo streams, out-of-range rate ratios, or
-        rings smaller than the read window."""
-        import jax
-
-        from .pallas_ring import RESAMPLE_DSMAX, RESAMPLE_NMAX, RESAMPLE_W, \
-            pack_select_scalars, strip_resample
-        from ._dev import device_split_ds, exact_positions
-
-        size = self.size_pad
-        if "chunk" in params:
-            if params["chunk"].shape[-1] <= 8192:
-                ring = self._write_pool(dstate["ring"], params)
-            else:
-                # huge one-shot writes (bulk prefill): the strip would not
-                # fit a VMEM block; the per-voice scatter runs once and is
-                # off the sustained-ingest path
-                ring = jax.vmap(self._write_one)(dstate["ring"], params)
-            dstate = {"ring": ring}
-            params = {
-                k: v for k, v in params.items()
-                if k not in ("chunk", "wcount", "wpos")
-            }
-        # window sized for the tightest available trace-static step bound:
-        # the spec's own per-block tier (host pools, set in host_prepare)
-        # or the pool-stamped tier (DR pools, core/drctrl.py) — both are
-        # upper bounds on ds, so the min is a valid bound
-        tiers = [
-            t for t in (getattr(self, "_ds_tier", None),
-                        getattr(self, "_pool_ds_tier", None))
-            if t is not None
-        ]
-        DS = min(tiers) if tiers else int(RESAMPLE_DSMAX)
-        S_req = max(
-            ((256 + max(n - 128, 0) * DS) // 128) * 128 + RESAMPLE_W,
-            256 + n * DS + 3,
-        )
-        kernel_ok = (
-            self.channels == 1
-            and n <= RESAMPLE_NMAX
-            and S_req <= size
-            and bool(getattr(self, "_ds_small", True))
-            and bool(getattr(self, "_pool_ds_small", True))
-        )
-        if not kernel_ok:
-            return jax.vmap(lambda d, p: self.render(d, ddata, p, n))(
-                dstate, params
-            )
-
-        ring = dstate["ring"]  # (V, R, 128) rows-native (mono)
-        V = ring.shape[0]
-        ROWB = 128
-        rpv = self._rows
-        view = ring.reshape(V * rpv, ROWB)
-        # the boundary lerp cell (get_pair's b at k == len) is a true zero
-        # by WRITE-side invariant: every ingest chunk ships one spare
-        # zero-termination column (host_prepare / dr_ingest), so the read
-        # side never touches the ring — a ring-sized write+gather pair in
-        # one scan body would re-materialize the whole ring every block
-        # (~4.9 us/MB; 835 MB at 1024 six-second voices = ~5 ms/block)
-        vbase = jnp.arange(V, dtype=jnp.int32) * rpv
-        ds_int, f_hi, f_lo = device_split_ds(params["ds"])
-        row0 = params["start"] // ROWB
-        extra = params["start"] - row0 * ROWB
-        n_rows = -(-S_req // ROWB) + 1
-        idx = (
-            vbase[:, None] + jnp.mod(row0[:, None] + jnp.arange(n_rows), rpv)
-        ).reshape(-1)
-        strips = jnp.take(view, idx, axis=0).reshape(V, n_rows * ROWB)
-        scal = pack_select_scalars(params["t"], ds_int, f_hi, f_lo)
-        samp = strip_resample(
-            strips, scal, extra, n=n,
-            interpret=jax.default_backend() != "tpu",
-        )
-        # zero past the buffered extent (stream.rs:41-49 underrun padding)
-        whole, _ = exact_positions(params["t"], ds_int, f_hi, f_lo, n)
-        samp = jnp.where(whole < params["len"][:, None], samp, 0.0)
-        return {"ring": view.reshape(ring.shape)}, samp[:, None, :]
-
 
     # -- device-resident mode --------------------------------------------------
     # The ring AND its (t, len, start) cursors live on device, advancing
@@ -416,10 +280,6 @@ class Stream(Signal):
 
     def dr_needs_ingest(self):
         return True
-
-    def host_ds_bound(self, interval):
-        r = np.max(self.rate) if getattr(self.rate, "ndim", 0) else self.rate
-        return float(np.float32(interval) * np.float32(r))
 
     def dr_state_init(self, V):
         return {
@@ -551,25 +411,25 @@ class Stream(Signal):
             "wcount": ing["wcount"] + 1,  # zero-termination column
             "wpos": wpos,
         }
-        if ing["chunk"].shape[-1] <= 8192:
-            ring = self._write_pool(state["ring"], params)
-        else:
-            ring = jax.vmap(self._write_one)(state["ring"], params)
+        ring = jax.vmap(self._write_one)(state["ring"], params)
         out = dict(state)
         out["ring"] = ring
         out["len"] = state["len"] + ing["wcount"]
         return out
 
     def dr_render(self, state, ddata, interval, n, count):
+        import jax
+
         params = {
             "t": state["t"],
             "ds": np.float32(interval) * state["rate"],
             "len": state["len"],
             "start": state["start"],
         }
-        d2, samp = self.render_batched({"ring": state["ring"]}, ddata, params, n)
+        _, samp = jax.vmap(lambda d, p: self.render(d, ddata, p, n))(
+            {"ring": state["ring"]}, params
+        )
         out = dict(state)
-        out["ring"] = d2["ring"]
         # release consumed whole samples (stream.rs:63-69), mirrored by
         # dr_host_tick on the host
         cf = count.astype(jnp.float32)

@@ -1,13 +1,13 @@
-"""Device-mesh helpers for scaling audio scenes across TPU chips.
+"""Device-mesh helpers for scaling audio scenes across devices.
 
 The reference has no distributed backend at all (SURVEY.md §2: its only
-concurrency is the two-thread wait-free control plane).  The TPU-native
+concurrency is the two-thread wait-free control plane).  The batch
 equivalents are:
 
 * **scene axis** — independent scenes are embarrassingly parallel: pure data
-  parallelism over ICI/DCN, no collectives.
-* **voice axis** — one giant scene's voices shard across chips; the mix
-  reduction becomes a single ``psum`` over the voice mesh axis riding ICI.
+  parallelism, no collectives.
+* **voice axis** — one giant scene's voices shard across devices; the mix
+  reduction becomes a single ``psum`` over the voice mesh axis.
 """
 
 from __future__ import annotations

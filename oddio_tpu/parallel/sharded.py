@@ -6,7 +6,7 @@ scene axis in front of that.  The jitted step then runs under ``shard_map``
 with every leaf partitioned ``P(scene, voice)``; per-voice work (source
 render, ring scatter/gather, gain ramps) needs no communication, and the
 masked mix reduction finishes with one ``psum`` over the voice axis — the
-only collective in the engine, riding ICI.  Scenes are pure data parallelism.
+only collective in the engine.  Scenes are pure data parallelism.
 
 The host control plane stays per-scene: each scene keeps its own handles and
 numpy state; per block the pack stacks their parameter pytrees (cheap numpy)

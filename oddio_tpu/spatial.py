@@ -20,7 +20,7 @@ interpolates offset & gain across the block, and accumulates into the ears;
 finished voices linger for ``distance/c`` before reclamation
 (spatial.rs:241-261).
 
-TPU redesign (SURVEY.md §7): all *geometry* — smoothing, quaternion rotation,
+Batch redesign (SURVEY.md §7): all *geometry* — smoothing, quaternion rotation,
 ear gains/offsets, lingering — is per-voice-per-block scalar math and runs on
 the **host** in vectorized f32 numpy with the reference's exact op order
 (replacing the swap/atomic control plane).  The *audio* path runs on device:
@@ -49,17 +49,12 @@ from .core.hostmath import (
     v3_norm,
 )
 from .core.signal import Signal
-from .ops._dev import device_advance, device_split_ds, exact_positions, split_ds
-from .ops.pallas_ring import (
-    PAGE,
-    pack_select_scalars,
-    rows_append_dma,
-    select_window,
-    strip_place,
-    strip_select,
-    window_select_tiles,
-    window_select_tiles_ears,
-    window_select_tiles_multi,
+from .ops._dev import (
+    WARP_CHUNK,
+    device_advance,
+    device_split_ds,
+    exact_positions,
+    split_ds,
 )
 
 __all__ = [
@@ -81,21 +76,90 @@ from .ops.geometry import (  # noqa: F401  (re-exported API surface)
 
 DEFAULT_CAPACITY = 16
 
-#: bounds the per-block doppler walk handled by the shift-select read
-#: kernel: |ds-1|*n <= 2K (K=64 covers > ±40 m/s radial at 512@48k; beyond
-#: it the reference itself pops, spatial.rs:241-242)
-K_DOPPLER = 64
-
-#: row granularity of the strip ring layout (gathers/scatters are row-count
-#: bound on this stack, so rows trade per-row overhead against over-fetch)
+#: row width of the host buffered pool's ring storage ((V * rows, RING_ROW))
 RING_ROW = 128
 
+#: DR ring page size (samples): pool moduli are multiples of it
+PAGE = 1024
 
-def _emax(rate):
-    """Per-ear start offsets within a shared read window sit in [0, emax):
-    row granularity + the inter-ear distance in samples (|d_L - d_R| <=
-    0.215 m, spatial.rs:571-598) + slack."""
-    return RING_ROW + int(np.ceil(0.215 / float(SPEED_OF_SOUND) * rate)) + 2
+
+def _select_window(n, emax2, K, SB=128):
+    """Per-voice read-window width (a multiple of 128) an ``n``-frame read
+    chunk spans: inter-ear stagger (< emax2) + frames + doppler walk (<= 2K)
+    + the lerp's +1, in SB-frame sub-blocks.  The read-tier ladder admits a
+    tier only when this fits the ring's mirror width (M_PAD)."""
+    nsb = -(-n // SB)
+    return (nsb - 1) * SB + -(-(emax2 + SB + 2 * K + 1) // 128) * 128
+
+
+def _ring_reader():
+    """The DR ring read for the platform this trace targets: the fused
+    Triton kernel on NVIDIA GPUs (it beat the plain read end to end on
+    the 4096-voice buffered scene, PERF.md), the plain XLA read
+    elsewhere.  The target is the default device, which
+    ``jax.default_device`` overrides."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        platform = jax.default_backend()
+    else:
+        platform = dev if isinstance(dev, str) else dev.platform
+    if platform in ("gpu", "cuda"):
+        from .ops.ring_read_triton import ring_read_triton
+
+        return ring_read_triton
+    return _ring_read
+
+
+def _ring_append(flat, samples, start, cap, chunk, mirror):
+    """Write ``samples`` (V, W) into every voice's ring at the shared
+    cursor ``start`` (mod ``cap``) — Ring::write, ring.rs:18-41.
+
+    ``flat`` is the (V, rowlen) ring view: ``chunk`` front-pad columns,
+    the ``cap``-sample ring, a ``mirror``-wide copy of ring [0, mirror),
+    and ``chunk`` dump columns.  Each <= chunk-wide sub-slab lands as TWO
+    dynamic_update_slices: the primary leg at the cursor, and a second leg
+    that keeps the mirror invariant — into the mirror when the slab
+    touches [0, mirror); shifted by -cap when it runs past cap (the
+    wrapped tail lands on its home at ring [0, ...), the head in the front
+    pad); into the dump slack otherwise."""
+    for k in range(0, samples.shape[1], chunk):
+        piece = samples[:, k : k + chunk]
+        width = piece.shape[1]
+        ck = jnp.mod(start + k, cap)
+        flat = jax.lax.dynamic_update_slice(flat, piece, (0, chunk + ck))
+        c2 = chunk + jnp.where(
+            ck + width > cap, ck - cap,
+            jnp.where(ck < mirror, ck + cap, cap + mirror),
+        )
+        flat = jax.lax.dynamic_update_slice(flat, piece, (0, c2))
+    return flat
+
+
+def _ring_read(flat, voff, base_c, frac_c, split_c, g0_c, dg_c, n, cap):
+    """Fractional per-ear delay-ring reads with gain ramps, summed over
+    voices (ring.rs:51-79, spatial.rs:409-431): ``out[e, j] = sum_v
+    (g0 + j*dg) * lerp(ring[x], ring[x+1], fr)`` at the exact split-ds
+    positions ``x + fr = base + frac + j*ds`` (mod ``cap``).
+
+    ``flat`` is the whole ring storage flattened; ``voff`` (Vr,) int32 the
+    flat index of each rendered voice's ring sample 0.  Per-ear args are
+    (Vr,) component lists: ``base_c`` int32 and ``frac_c`` in [0, 1) the
+    start cursor, ``split_c`` = [(ds_int, f_hi, f_lo)] the step, ``g0_c`` /
+    ``dg_c`` the gain ramp with the voice mask folded in (exact for 0/1
+    masks).  A frozen voice (ds = 0, spatial.rs:414-416) reads one constant
+    position exactly.  Returns (2, n)."""
+    rows = []
+    for e in range(2):
+        ds_int, f_hi, f_lo = split_c[e]
+        whole, fr = exact_positions(frac_c[e], ds_int, f_hi, f_lo, n)
+        x = jnp.mod(base_c[e][:, None] + whole, cap)
+        a = jnp.take(flat, voff[:, None] + x)
+        b = jnp.take(flat, voff[:, None] + jnp.mod(x + 1, cap))
+        s = a + fr * (b - a)
+        jn = jnp.arange(n, dtype=jnp.float32)
+        gains = g0_c[e][:, None] + jn[None, :] * dg_c[e][:, None]
+        rows.append(jnp.sum(s * gains, axis=0))
+    return jnp.stack(rows)
 
 
 def _smooth_host(prev, smdt, dt_extra, mpos, mvel):
@@ -300,9 +364,8 @@ class _BufferedPool(_VoicePool):
     """Voices played via play_buffered whose chains keep host-fed state
     (Streams, custom signals): per-voice delay rings on device, geometry on
     the host.  Per-voice write cursors differ here (no shared-phase trick),
-    so the ring keeps the row-strip layout and the strip_place/strip_select
-    kernel pair (elementwise gathers are ~serial on TPU; see
-    ops/pallas_ring.py) — only the cursor math lives host-side."""
+    so writes scatter and reads gather per (voice, frame); only the cursor
+    math lives host-side."""
 
     def __init__(self, name, spec, capacity, rate, ring_len):
         self.rate = int(rate)
@@ -403,75 +466,19 @@ class _BufferedPool(_VoicePool):
             "gain0": prev_gain,
             "d_gain": d_gain,
             "inner": inner_params,
+            "start": start_idx.astype(np.int32),
+            "obase": obase.astype(np.int32),
+            "ofrac": (offset0 - obase).astype(np.float32),
+            "ds_int": ds_int,
+            "f_hi": f_hi,
+            "f_lo": f_lo,
         }
-        # strips need the kernel walk bound to hold: positions step at
-        # ds = (ring rate / scene rate) x doppler (ring.rs:51-79 resamples
-        # at ANY ratio), so |ds - 1| * n must stay under K.  This pool's
-        # cursor math lives host-side, so the bound is the TRUE per-voice
-        # walk — supersonic motion or a frozen -max_delay clamp (ds = 0,
-        # spatial.rs:414-415) drops to the exact elementwise branch below.
-        live = self.mask
-        walk = (
-            float(np.abs(ds[live] - np.float32(1.0)).max()) * n
-            if live.any()
-            else 0.0
-        )
-        self._use_strips = bool(
-            self._n_inner <= PAGE + 1
-            and 0 < n <= 640
-            and walk <= K_DOPPLER
-        )
-        start_i = start_idx.astype(np.int32)
-        ob = obase.astype(np.int32)
-        if self._use_strips:
-            # strip window cursors (same scheme as the DR pool, computed on
-            # the host where this pool's cursor state lives): one write
-            # strip per voice, ONE shared read window for both ears
-            K = K_DOPPLER
-            params["wrow"] = start_i // RING_ROW
-            params["extra_w"] = start_i - params["wrow"] * RING_ROW
-            dlr = np.mod(ob[:, 0] - ob[:, 1], L)
-            DMAX = _emax(self.rate) - RING_ROW
-            l_ahead = dlr <= DMAX
-            cm = np.where(l_ahead, ob[:, 1], ob[:, 0])
-            dstart = np.stack(
-                [np.where(l_ahead, dlr, 0), np.where(l_ahead, 0, L - dlr)],
-                axis=-1,
-            )
-            dstart = np.clip(dstart, 0, DMAX)
-            rstart = np.mod(cm - K, L)
-            params["rrow"] = (rstart // RING_ROW).astype(np.int32)
-            params["extra_r"] = (
-                (rstart - params["rrow"] * RING_ROW)[:, None] + dstart
-            ).astype(np.int32)
-            params["scal"] = np.stack(
-                [
-                    (offset0 - obase).astype(np.float32),
-                    f_hi, f_lo, ds_int.astype(np.float32),
-                ],
-                axis=-1,
-            )
-        else:
-            # fallback for exotic block configs (elementwise gather; slow on
-            # TPU, exercised only by tiny CPU test blocks)
-            params["start"] = start_i
-            params["obase"] = ob
-            params["ofrac"] = (offset0 - obase).astype(np.float32)
-            params["ds_int"] = ds_int
-            params["f_hi"] = f_hi
-            params["f_lo"] = f_lo
         return params
 
     def _inner_prepare(self, inner_interval, n_inner, n_write):
         return self.sig.host_prepare(inner_interval, n_inner, count=n_write)
 
     def _inner_render(self, dstate, ddata, params, n_inner):
-        rb = getattr(self.sig, "render_batched", None)
-        if rb is not None:
-            # pool-level batched inner render (Pallas-backed Streams)
-            return rb(
-                dstate["inner"], ddata.get("inner", {}), params["inner"], n_inner
-            )
         return jax.vmap(
             lambda d, p: self.sig.render(d, ddata.get("inner", {}), p, n_inner)
         )(dstate["inner"], params["inner"])
@@ -487,64 +494,36 @@ class _BufferedPool(_VoicePool):
         samples = blocks[:, 0, :]  # (V, n_inner) mono
         L = self.ring_len
         rpv = self._rpv
-
-        if not self._use_strips:
-            ring = dstate["ring"].reshape(V, L)
-            j = jnp.arange(n_inner)
-            idx = jnp.mod(params["start"][:, None] + j[None, :], L)
-            idx = jnp.where(j[None, :] < params["n_write"][:, None], idx, L)
-            ring = ring.at[jnp.arange(V)[:, None], idx].set(samples, mode="drop")
-            jn = jnp.arange(n, dtype=jnp.float32)
-            whole, fr = exact_positions(
-                params["ofrac"], params["ds_int"], params["f_hi"], params["f_lo"], n
-            )
-            x = jnp.mod(params["obase"][:, :, None] + whole, L)
-            x1 = jnp.mod(x + 1, L)
-            flat = lambda ix: jnp.take_along_axis(
-                ring, ix.reshape(V, 2 * n), axis=1
-            ).reshape(V, 2, n)
-            a = flat(x)
-            b = flat(x1)
-            s = a + fr * (b - a)
-            gains = (
-                params["gain0"][:, :, None]
-                + jn[None, None, :] * params["d_gain"][:, :, None]
-            )
-            contrib = jnp.where(params["mask"][:, None, None], s * gains, 0.0)
-            return {"ring": ring.reshape(V * rpv, RING_ROW), "inner": dsub}, jnp.sum(contrib, axis=0)
-
-        # row-strip path (ring.rs:18-41 write, ring.rs:51-79 +
-        # spatial.rs:409-431 read), shared kernels with the DR pool
-        interp = jax.default_backend() != "tpu"
-        view = dstate["ring"]  # (V*rpv, ROW)
-        vbase = jnp.arange(V, dtype=jnp.int32) * rpv
-        n_rows_w = (RING_ROW - 1 + n_inner - 1) // RING_ROW + 1
-        idx_w = (
-            vbase[:, None] + jnp.mod(params["wrow"][:, None] + jnp.arange(n_rows_w), rpv)
-        ).reshape(-1)
-        wstrips = jnp.take(view, idx_w, axis=0).reshape(V, n_rows_w * RING_ROW)
-        wstrips = strip_place(
-            wstrips, samples, params["extra_w"], params["n_write"],
-            interpret=interp,
+        # Ring::write (ring.rs:18-41): scatter the consumed frames at each
+        # voice's write cursor
+        ring = dstate["ring"].reshape(V, L)
+        j = jnp.arange(n_inner)
+        idx = jnp.mod(params["start"][:, None] + j[None, :], L)
+        idx = jnp.where(j[None, :] < params["n_write"][:, None], idx, L)
+        ring = ring.at[jnp.arange(V)[:, None], idx].set(samples, mode="drop")
+        # Ring::sample (ring.rs:51-79) per ear with gain ramps
+        # (spatial.rs:409-431)
+        jn = jnp.arange(n, dtype=jnp.float32)
+        whole, fr = exact_positions(
+            params["ofrac"], params["ds_int"], params["f_hi"], params["f_lo"], n
         )
-        view = view.at[idx_w].set(wstrips.reshape(-1, RING_ROW))
-
-        emax = _emax(self.rate)
-        K = K_DOPPLER
-        H7 = (emax - 1 + 2 * K) // 128 + 1
-        nsb = -(-n // 128)
-        need = (nsb - 1) * 128 + 128 * (H7 - 1) + 384
-        n_rows_r = -(-need // RING_ROW)
-        idx_r = (
-            vbase[:, None] + jnp.mod(params["rrow"][:, None] + jnp.arange(n_rows_r), rpv)
-        ).reshape(-1)
-        rstrips = jnp.take(view, idx_r, axis=0).reshape(V, n_rows_r * RING_ROW)
-        out = strip_select(
-            rstrips, jnp.asarray(params["scal"]), params["gain0"],
-            params["d_gain"], params["mask"].astype(jnp.float32),
-            params["extra_r"], n=n, K=K, emax=emax, interpret=interp,
+        x = jnp.mod(params["obase"][:, :, None] + whole, L)
+        x1 = jnp.mod(x + 1, L)
+        flat = lambda ix: jnp.take_along_axis(
+            ring, ix.reshape(V, 2 * n), axis=1
+        ).reshape(V, 2, n)
+        a = flat(x)
+        b = flat(x1)
+        s = a + fr * (b - a)
+        gains = (
+            params["gain0"][:, :, None]
+            + jn[None, None, :] * params["d_gain"][:, :, None]
         )
-        return {"ring": view, "inner": dsub}, out
+        contrib = jnp.where(params["mask"][:, None, None], s * gains, 0.0)
+        return (
+            {"ring": ring.reshape(V * rpv, RING_ROW), "inner": dsub},
+            jnp.sum(contrib, axis=0),
+        )
 
 
 class _BufferedPoolSingleton(_BufferedPool):
@@ -552,7 +531,7 @@ class _BufferedPoolSingleton(_BufferedPool):
     (`Mixer`, nested scenes) played into a SpatialScene, which the
     reference allows for any Signal (spatial.rs:314-340).  The voice's
     signal renders unbatched; everything else (geometry walk, ring
-    cursors, strip kernels at V=1) reuses the host buffered pool."""
+    cursors, reads at V=1) reuses the host buffered pool."""
 
     is_singleton = True
 
@@ -658,10 +637,10 @@ class _DRPoolBase(DRCtrlMixin):
     """Shared device-resident control plane for spatial voice pools.
 
     All per-voice control state — motion, smoothing, lingering, masks, and
-    the inner sources' playback state — lives on the TPU; every block the
+    the inner sources' playback state — lives on the device; every block the
     geometry (spatial.rs:204-261, 530-550) runs inside the jitted graph.
     The host ships only *sparse control deltas* (plays, set_motion) — the
-    TPU-native equivalent of oddio's bounded spsc/swap channels, with the
+    device-resident equivalent of oddio's bounded spsc/swap channels, with the
     same bounded-capacity backpressure (overflow carries to the next block).
     Handle state (is_finished) is observed at sync points (every
     render_frames, periodic render_block sync, or SpatialScene.sync()).
@@ -1073,7 +1052,7 @@ class _SeekPoolDR(_DRPoolBase):
     positionally-evaluable source chain (``dr_warp_render``), a whole block
     is pure elementwise math over (voice, ear, frame): geometry, two warped
     source evaluations, gain ramps, and one masked reduction — no gathers,
-    no scatters, no Pallas; XLA fuses it into a few HBM-light kernels.
+    no scatters; XLA fuses it into a few HBM-light kernels.
     """
 
     ROW_KEYS = _DRPoolBase.GEOM_KEYS
@@ -1094,8 +1073,8 @@ class _SeekPoolDR(_DRPoolBase):
         # rotation values arrive in-graph from the scene's "_rot" state leaf
         self._elapsed = float(np.float32(f32(interval) * np.float32(n)))
         # warp steps are the scene interval times the doppler factor; 1.25
-        # covers the clamped |v|/c range (K_DOPPLER) with margin
-        self._ds_small = self._ds_flag_sync(float(f32(interval)) * 1.25)
+        # covers the clamped |v|/c range with margin
+        self._ema_flag_sync(float(f32(interval)) * 1.25)
         params = self._delta_params({}, force)
         # keep the geometry mirrors' smoothing clock current (the seek pool
         # never reads them, but delta-ship math does)
@@ -1141,27 +1120,23 @@ class _BufferedPoolDR(_DRPoolBase):
     """Device-resident buffered pool: the flagship scale path.
 
     All per-voice control-plane state — motion, smoothing, lingering, masks,
-    ring cursors, and the inner sources' playback cursors — lives on the TPU;
-    every block the geometry (spatial.rs:204-261, 530-550), the delay-ring
-    write (ring.rs:18-41), the inner source render, and the fractional ear
-    reads (ring.rs:51-79, spatial.rs:409-431) run inside one jitted graph.
-    The host ships only *sparse control deltas* (plays, set_motion) — the
-    TPU-native equivalent of oddio's bounded spsc/swap channels, with the
-    same bounded-capacity backpressure (overflow carries to the next block).
+    ring cursors, and the inner sources' playback cursors — lives on the
+    device; every block the geometry (spatial.rs:204-261, 530-550), the
+    delay-ring write (ring.rs:18-41), the inner source render, and the
+    fractional ear reads (ring.rs:51-79, spatial.rs:409-431) run inside one
+    jitted graph.  The host ships only *sparse control deltas* (plays,
+    set_motion) — the device-resident equivalent of oddio's bounded
+    spsc/swap channels, with the same bounded-capacity backpressure
+    (overflow carries to the next block).
 
-    Ring storage is ROWS-NATIVE per voice: ``(V, RPV, 128)`` covering the
-    flat per-voice span ``F + L + M + SLACK`` (front pad, ring, mirror —
-    cols ``[F+L, F+L+M)`` replicate ``[F, F+M)`` — and dump slack).  With
-    a 128-lane minor dim this layout is PHYSICALLY linear on TPU (row and
-    flat views are free bitcasts), which matters twice: reads are a plain
-    tile-granule gather feeding ``window_select_tiles``, and the whole
-    step stays
-    in-place inside scans — the earlier ``(V, rowlen)`` layout's
-    row-view reshape was a full ~300 MB relayout every block
-    (ROADMAP.md probe notes).  Because the pool shares one write cursor,
-    the per-block append is ONE strided DMA per voice tile
-    (``rows_append_dma``: primary + mirror-maintenance legs), costing
-    exactly the bytes written.
+    Ring storage is ``(V, RPV, 128)`` per voice, covering the flat span
+    ``F + L + M + SLACK`` (front pad, ring, mirror — cols ``[F+L, F+L+M)``
+    replicate ``[F, F+M)`` — and dump slack); the flat ``(V, rowlen)``
+    view is a free reshape.  Because the pool shares one write cursor, the
+    per-block append is two slab writes (primary + mirror-maintenance
+    legs) into the donated ring, costing exactly the bytes written; reads
+    gather per (voice, ear, frame) (``_ring_reader``: the Triton kernel on
+    GPUs, the plain XLA read elsewhere).
 
     Requires the inner chain to be device-resident capable (static after
     play: Sine/Constant/FramesSignal/Cycle/FixedGain). Handle state
@@ -1171,24 +1146,11 @@ class _BufferedPoolDR(_DRPoolBase):
 
     ROW_KEYS = _DRPoolBase.GEOM_KEYS + ("max_delay", "phase", "tight")
 
-    #: bounds the per-READ-CHUNK doppler walk handled by the select kernel:
-    #: |ds-1|*chunk <= K (K=64 covers > ±40 m/s radial at 512@48k).  The
-    #: actual (chunk, K) is picked per block by host_prepare from the
-    #: ring/scene rate ratio (ring.rs:51-79 resamples at ANY ratio); this
-    #: constant is the ratio-1 flagship tier.
-    K_DOPPLER = 64
-    #: frames per read chunk at ratio 1 (blocks of any size run as
-    #: ceil(n/chunk) window-gather + select passes, cursors advanced
-    #: near-exactly between chunks — Signal::sample takes any n,
-    #: signal.rs:19; exotic ratios shrink the chunk or drop to the exact
-    #: elementwise read)
-    R_CHUNK = 512
-    #: columns per general-path write chunk (and the front-pad width; any
-    #: n_inner writes as ceil(n_inner/W_CHUNK) slab pairs)
+    #: columns per write chunk (and the front-pad width; any n_inner
+    #: writes as ceil(n_inner/W_CHUNK) slab pairs)
     W_CHUNK = 1024
-    #: mirror width: must cover the widest read window (select_window of a
-    #: full R_CHUNK at the 128-row stagger = 896) — wrapped reads land
-    #: entirely in the mirror
+    #: mirror width: bounds the read-tier windows (_select_window of a
+    #: full 512-frame chunk at the 128-row stagger = 896)
     M_PAD = 1024
     #: family sub-pass slot count: wide-walk voices (offset-clamped /
     #: fast movers, spatial.rs:414-415) are host-listed into a fixed-size
@@ -1216,7 +1178,6 @@ class _BufferedPoolDR(_DRPoolBase):
         #: inter-ear read stagger bound in samples (|d_L - d_R| <= 0.215 m,
         #: spatial.rs:571-598); the select kernel reaches it without realign
         self.emax2 = int(np.ceil(0.215 / float(SPEED_OF_SOUND) * rate)) + 2
-        select_window(self.R_CHUNK, self.emax2, self.K_DOPPLER)
         self._n_inner = 1
         self._read_cfg = None  # set per block by host_prepare
         #: per-voice max_delay host column: a voice whose propagation offset
@@ -1463,8 +1424,8 @@ class _BufferedPoolDR(_DRPoolBase):
         escalate exactly; transient ones are capped at the K=64 delta-class
         envelope so control traffic never compiles a fresh variant.
 
-        The full mirror sweep is O(V) numpy (~0.5 ms at 4096 voices), far
-        too hot per block — it runs only when the cached verdict can have
+        The full mirror sweep is O(V) numpy, too hot per block — it runs
+        only when the cached verdict can have
         changed: mirrors touched, block size changed, a rotation step, or a
         voice able to reach its clamp boundary (|gap|/speed horizon)."""
         c = self._b_cache
@@ -1667,31 +1628,6 @@ class _BufferedPoolDR(_DRPoolBase):
             self._w_host = end
         else:
             end, start_i, n_write = self._prepare_cursor_f32(advf)
-        # aligned fast path: when the shared cursor advances by whole
-        # 128-lane rows (inner rate == scene rate, n a multiple of 128 —
-        # the flagship config) and the slab does not wrap, the append is
-        # one strided DMA per voice tile instead of a read-modify-write.
-        # The mirror-maintenance leg writes the SAME width at +cap (when
-        # the slab touches [0, M)) or into the dump slack (when it does
-        # not), so the slab must also fit that leg's room: M + W_CHUNK
-        # columns past start_i in the first case, W_CHUNK in the second —
-        # wider slabs (huge blocks) take the chunked general path below.
-        mirror_fits = (
-            start_i + n_write <= self.M_PAD + self.W_CHUNK
-            if start_i < self.M_PAD
-            else n_write <= self.W_CHUNK
-        )
-        self._w_aligned = (
-            n_write
-            if (
-                0 < n_write <= self._n_inner
-                and n_write % 128 == 0
-                and start_i % 128 == 0
-                and start_i + n_write <= cap
-                and mirror_fits
-            )
-            else 0
-        )
         params = {
             "w": end,
             "nw": np.int32(n_write),
@@ -1709,7 +1645,7 @@ class _BufferedPoolDR(_DRPoolBase):
         self._fade_tick(
             params if self._has_play else None, self.interval_inner, n_write
         )
-        self._ds_small = self._ds_flag_sync(self.interval_inner)
+        self._ema_flag_sync(self.interval_inner)
         # read-path tier: ring reads step at ds = (ring rate / scene rate)
         # x doppler (ring.rs:51-79 resamples at ANY ratio), so the chunk
         # length and walk bound K adapt to the ratio AND to the scene's
@@ -1764,19 +1700,11 @@ class _BufferedPoolDR(_DRPoolBase):
                     np.where(self.mask_host, np.int32(n_write), np.int32(0)),
                 )
         # param-FREE idle blocks: when the cursor math is on the integer
-        # fast path, the aligned append holds, and the advance divides the
-        # (pow2) modulus — so every successive idle block stays aligned —
-        # the traced step derives (w, nw, wstart) from the carried device
-        # cursor ("wcur") and the dispatch ships NOTHING.  Delta blocks
-        # keep the params and resync the device cursor.
-        self._w_free = (
-            int_path
-            and n_write > 0
-            and self._w_aligned == n_write
-            and cap % n_write == 0
-            and n_write <= self.W_CHUNK
-            and len(params) == 3
-        )
+        # fast path, the traced step derives (w, nw, wstart) from the
+        # carried device cursor ("wcur") exactly and the dispatch ships
+        # NOTHING.  Delta blocks keep the params and resync the device
+        # cursor.
+        self._w_free = int_path and n_write > 0 and len(params) == 3
         if self._w_free:
             return {}
         return params
@@ -1811,7 +1739,7 @@ class _BufferedPoolDR(_DRPoolBase):
         for n_c, k in ladder:
             if (
                 d * min(n_c, max(n, 1)) <= k
-                and select_window(n_c, 127 + self.emax2, k) <= self.M_PAD
+                and _select_window(n_c, 127 + self.emax2, k) <= self.M_PAD
             ):
                 out = (n_c, k)
                 break
@@ -1973,10 +1901,9 @@ class _BufferedPoolDR(_DRPoolBase):
 
     def _advance_block(self, dstate, ddata, params, n):
         """One block's control walk, ring append, and read-prep geometry
-        (steps 1-6 of the render plus the per-ear cursor/gain scalars) —
-        shared by the per-block ``render`` and the multi-block
-        ``render_multi``.  Returns ``(S, ro)`` with ``ro`` holding the
-        per-ear read operands."""
+        (steps 1-6 of the render plus the per-ear cursor/gain scalars).
+        Returns ``(S, ro)`` with ``ro`` holding the per-ear read
+        operands."""
         from .ops.geometry import ear_states_c
 
         S = dict(dstate)
@@ -2025,53 +1952,15 @@ class _BufferedPoolDR(_DRPoolBase):
             S["inner"], ddata.get("inner", {}), self.interval_inner, n_inner, n_write
         )
         S["inner"] = inner2
-        interp = jax.default_backend() != "tpu"
-        FP = self.W_CHUNK  # front pad (absorbs wrapped mirror writes)
-        M = self.M_PAD
-        ring = S["ring"]  # (V, RPV, 128), physically linear
-        if self._w_aligned:
-            # row-aligned slab: one strided DMA per voice tile (primary +
-            # mirror-maintenance legs), ring aliased in place
-            nw = self._w_aligned
-            r0 = (FP + start_i) // 128
-            rm = (
-                FP + jnp.where(start_i < M, start_i + cap, cap + M)
-            ) // 128
-            ring = rows_append_dma(
-                ring, samples[:, :nw], r0, rm, interpret=interp
-            )
-        else:
-            # general (unaligned/wrapping) path, exotic block configs only:
-            # each <=W_CHUNK-wide sub-slab lands as TWO
-            # dynamic_update_slices on a flat view (a relayout round trip
-            # on TPU — see the class docstring; correctness path, not the
-            # flagship one).  The mirror-maintenance copy goes into the
-            # mirror when the slab touches [0, M), onto the canonical home
-            # when it wrapped past L, or into the dump slack otherwise.
-            flat = ring.reshape(V, self.rowlen)
-            for k in range(0, n_inner, self.W_CHUNK):
-                chunk = samples[:, k : k + self.W_CHUNK]
-                width = chunk.shape[1]
-                ck = jnp.mod(start_i + k, cap)
-                flat = jax.lax.dynamic_update_slice(flat, chunk, (0, FP + ck))
-                c2 = FP + jnp.where(
-                    ck + width > cap, ck - cap,
-                    jnp.where(ck < M, ck + cap, cap + M),
-                )
-                flat = jax.lax.dynamic_update_slice(flat, chunk, (0, c2))
-            ring = flat.reshape(self._ring_shape(V))
-        S["ring"] = ring
+        flat = _ring_append(
+            S["ring"].reshape(V, self.rowlen), samples, start_i, cap,
+            self.W_CHUNK, self.M_PAD,
+        )
+        S["ring"] = flat.reshape(self._ring_shape(V))
 
-        # 7. per-ear fractional reads with gain ramps (spatial.rs:409-431):
-        # ONE contiguous window per voice per chunk (the two ears' read
-        # starts differ by at most the inter-ear distance, |d_L - d_R| <=
-        # 0.215 m), cursors advanced near-exactly between chunks so any
-        # block size AND any ring/scene rate ratio renders on the same
-        # kernels (chunk length + walk bound K from the tier picked in
-        # host_prepare; exotic ratios take the exact elementwise read)
-        # component-split per ear: every array below is (V,) lane-major
-        # (see ops/geometry.py component notes); ears stack only at kernel
-        # operand boundaries
+        # 7. per-ear read cursors and gain ramps (spatial.rs:409-431),
+        # component-split per ear: every array below is (V,) (see
+        # ops/geometry.py component notes)
         p_off_c, p_gain_c = ear_states_c(prev_pos, S["radius"])
         n_off_c, n_gain_c = ear_states_c(next_pos, S["radius"])
         nmd = -S["max_delay"]
@@ -2089,78 +1978,27 @@ class _BufferedPoolDR(_DRPoolBase):
             for e in range(2)
         ]
         maskf = mask.astype(jnp.float32)
-        # per-ear FROZEN flags: a fully offset-clamped voice
-        # (spatial.rs:414-416) has n_off == p_off exactly, so the read's
-        # per-frame step dt*rate (ring.rs:62) is exactly zero and every
-        # frame reads one constant fractional position.  The select kernel
-        # broadcasts the j=0 sample for flagged voices (bit-exact — see
-        # _ears_pipeline_flat), letting clamped voices ride the TIGHT tier;
-        # the host walk bound excludes certainly-frozen voices, so a far
-        # voice no longer demotes the pool or occupies the sub-pass list.
-        frz_c = [
-            (n_off_c[e] == p_off_c[e]).astype(jnp.float32)
-            for e in range(2)
-        ]
         return S, {
-            "mask": mask,
             "maskf": maskf,
             "p_gain_c": p_gain_c,
             "d_gain_c": d_gain_c,
             "offset0_c": offset0_c,
             "obase_c": obase_c,
             "split_c": split_c,
-            "frz_c": frz_c,
         }
 
     def render(self, dstate, ddata, params, n):
         S, ro = self._advance_block(dstate, ddata, params, n)
         V = S["mask"].shape[0]
-        cap = self.cap_pool
-        mask = ro["mask"]
         maskf = ro["maskf"]
         p_gain_c = ro["p_gain_c"]
         d_gain_c = ro["d_gain_c"]
-        offset0_c = ro["offset0_c"]
-        obase_c = ro["obase_c"]
         split_c = ro["split_c"]
-        frz_c = [f[:, None] for f in ro["frz_c"]]
-        ring = S["ring"]
-        interp = jax.default_backend() != "tpu"
-        FP = self.W_CHUNK
-        if self._read_cfg is None:
-            # exotic rate ratio: exact elementwise read of the flat ring
-            # (slow on TPU but any-ratio correct, frames.rs-style lerp)
-            p_gain = jnp.stack(p_gain_c, axis=-1)
-            d_gain = jnp.stack(d_gain_c, axis=-1)
-            offset0 = jnp.stack(offset0_c, axis=-1)
-            obase = jnp.stack(obase_c, axis=-1)
-            ds_int = jnp.stack([s[0] for s in split_c], axis=-1)
-            f_hi = jnp.stack([s[1] for s in split_c], axis=-1)
-            f_lo = jnp.stack([s[2] for s in split_c], axis=-1)
-            jn = jnp.arange(n, dtype=jnp.float32)
-            gains = (
-                p_gain[:, :, None] + jn[None, None, :] * d_gain[:, :, None]
-            )
-            flat = ring.reshape(V, self.rowlen)[:, self.W_CHUNK:]
-            whole, fr = exact_positions(
-                offset0 - obase, ds_int, f_hi, f_lo, n
-            )
-            x = jnp.mod(obase.astype(jnp.int32)[:, :, None] + whole, cap)
-            look = lambda ix: jnp.take_along_axis(
-                flat, ix.reshape(V, 2 * n), axis=1
-            ).reshape(V, 2, n)
-            a = look(x)
-            b = look(jnp.mod(x + 1, cap))
-            s = a + fr * (b - a)
-            contrib = jnp.where(mask[:, None, None], s * gains, 0.0)
-            return S, jnp.sum(contrib, axis=0)
-        base_c = [o.astype(jnp.int32) for o in obase_c]
-        frac_c = [offset0_c[e] - obase_c[e] for e in range(2)]
-        PW = 128
-        RPV = self.rowlen // PW
-        assert RPV % 8 == 0  # rowlen = pow2 cap + 3*1024
-        rows8 = ring.reshape(V * (RPV // 8), 8, PW)
-        vb8 = jnp.arange(V, dtype=jnp.int32) * (RPV // 8)
+        base_c = [o.astype(jnp.int32) for o in ro["obase_c"]]
+        frac_c = [ro["offset0_c"][e] - ro["obase_c"][e] for e in range(2)]
+        # beyond every read tier (exotic rate ratios): one exact read in
+        # WARP_CHUNK-frame chunks
+        cfg = self._read_cfg or (WARP_CHUNK, 0)
         sub_cfg = self._sub_cfg
         if "sub_idx" in params:
             # membership refresh (delta blocks): carry the list and the
@@ -2174,14 +2012,13 @@ class _BufferedPoolDR(_DRPoolBase):
             S["tight"] = 1.0 - hit.any(axis=0).astype(jnp.float32)
         maskf_main = maskf * S["tight"] if sub_cfg is not None else maskf
         out = self._windows_read(
-            rows8, vb8, base_c, frac_c, split_c, p_gain_c, d_gain_c,
-            maskf_main, self._read_cfg, n, cap, FP, interp, frz_c=frz_c,
+            S["ring"], jnp.arange(V, dtype=jnp.int32), base_c, frac_c,
+            split_c, p_gain_c, d_gain_c, maskf_main, cfg, n,
         )
         if sub_cfg is not None:
-            # family sub-pass: the host-listed wide-walk voices render at
-            # a wide tier over GATHERED rows (row-granular take of a
-            # 128-lane packed scalar matrix + the same granule gather the
-            # main pass uses), while the pool above kept its tight tier
+            # family sub-pass: the host-listed wide-walk voices render in
+            # the wide tier's chunks (row-granular take of a 128-lane packed
+            # scalar matrix), while the pool above kept its tight tier
             packc = jnp.stack(
                 [jax.lax.bitcast_convert_type(base_c[0], jnp.float32),
                  jax.lax.bitcast_convert_type(base_c[1], jnp.float32),
@@ -2199,8 +2036,8 @@ class _BufferedPoolDR(_DRPoolBase):
             g = jnp.take(packc, S["sub_idx"], axis=0)
             gi = jax.lax.bitcast_convert_type(g, jnp.int32)
             out = out + self._windows_read(
-                rows8,
-                S["sub_idx"] * np.int32(RPV // 8),
+                S["ring"],
+                S["sub_idx"],
                 [gi[:, 0], gi[:, 1]],
                 [g[:, 2], g[:, 3]],
                 [(g[:, 4].astype(jnp.int32), g[:, 6], g[:, 8]),
@@ -2208,23 +2045,21 @@ class _BufferedPoolDR(_DRPoolBase):
                 [g[:, 10], g[:, 11]],
                 [g[:, 12], g[:, 13]],
                 g[:, 14] * S["sub_on"],
-                sub_cfg, n, cap, FP, interp,
+                sub_cfg, n,
             )
         return S, out
 
-    #: blocks fused per multi-block dispatch group (superwindow reads):
-    #: consecutive idle blocks share ONE tile-granule window gather (the
-    #: windows overlap ~75% at ds ~= 1), cutting the read path's HBM bytes
-    #: ~2x.  Env-tunable; <2 disables.
+    #: blocks fused per multi-block dispatch group: consecutive idle blocks
+    #: render in one traced group (fewer dispatches).  Env-tunable; <2
+    #: disables.
     MULTI_NB = int(os.environ.get("ODDIO_MULTI_NB", "4"))
 
     def host_multiblock(self, interval, n):
         """Whether (and how wide) the NEXT idle blocks may dispatch as
-        fused multi-block groups: requires the param-free aligned cursor
-        path, a single-chunk 512-class tier with no sub-pass, and enough
-        ring slack that group-batched appends cannot overwrite samples an
-        earlier block of the group still reads (``max_delay*rate +
-        (nb-1)*adv + K + GW <= cap``).  Returns nb >= 2 or 0."""
+        fused multi-block groups: requires the param-free cursor path, a
+        single-chunk 512-class tier with no sub-pass, and ring slack for a
+        group's appends (``max_delay*rate + (nb-1)*adv + K + 1152 <=
+        cap``).  Returns nb >= 2 or 0."""
         nb = self.MULTI_NB
         if nb < 2 or not getattr(self, "_w_free", False):
             return 0
@@ -2238,168 +2073,31 @@ class _BufferedPoolDR(_DRPoolBase):
             return 0
         return nb
 
-    def render_multi(self, dstate, ddata, params, n, nb):
-        """``nb`` idle blocks in one traced group: per-block control walk,
-        append, and cursor math identical to ``render`` (bit-exact), but
-        all reads share ONE superwindow gather and ONE select kernel call
-        (window_select_tiles_multi).  Appends all land before the gather —
-        in-contract reads never pass their own block's write cursor, and
-        host_multiblock's slack gate keeps later appends from overwriting
-        samples earlier blocks still read.  Returns (S, (2, nb*n))."""
-        S = dstate
-        ros = []
-        for _ in range(nb):
-            S, ro = self._advance_block(S, ddata, params, n)
-            ros.append(ro)
-        V = S["mask"].shape[0]
+    def _windows_read(self, ring, vidx, base_c, frac_c, split_c,
+                      p_gain_c, d_gain_c, maskf, cfg, n):
+        """Fractional per-ear reads with gain ramps over one voice set (the
+        main pool or the family sub-pass list), mixed to (2, n).  ``ring``
+        is the pool's (V, RPV, 128) ring; ``vidx`` (Vr,) maps each rendered
+        row to its voice.  Cursor args are per-ear (Vr,) component lists
+        (base_c, frac_c, p_gain_c, d_gain_c; split_c = [(ds_int, f_hi,
+        f_lo)] x 2); ``maskf`` folds into the gains.  The block reads in
+        ``cfg[0]``-frame chunks, cursors advanced exactly between them."""
+        R_CHUNK = cfg[0]
         cap = self.cap_pool
-        interp = jax.default_backend() != "tpu"
-        PW, GW = 128, 1024
-        FP = self.W_CHUNK
-        FPG = FP // GW
-        capg = cap // GW
-        RPV = self.rowlen // PW
-        rows8 = S["ring"].reshape(V * (RPV // 8), 8, PW)
-        vb8 = jnp.arange(V, dtype=jnp.int32) * (RPV // 8)
-        n_c, K = self._read_cfg
-        DMAX = self.emax2
-        emax2r = PW - 1 + self.emax2
-        WIN = select_window(n, emax2r, K)
-        advf = self._prep_inv[2]
-        # static per-block slice bases / realign ranges: block b's window
-        # base advances by b*adv within [b*(adv-K), b*(adv+K)] (the tier
-        # contract |ds-1|*n <= K per block), plus block 0's in-granule
-        # remainder (< GW)
-        row0s = [max(0, int(np.floor(b * (advf - K) / PW))) for b in range(nb)]
-        hs = [
-            int(GW - 1 + b * (advf + K)) // PW - row0s[b] + 1
-            for b in range(nb)
-        ]
-        rstart0 = None
-        rsh, scal01, g01, e01, f01 = [], ([], []), ([], []), ([], []), ([], [])
-        for b, ro in enumerate(ros):
-            base_c = [o.astype(jnp.int32) for o in ro["obase_c"]]
-            frac_c = [ro["offset0_c"][e] - ro["obase_c"][e] for e in range(2)]
-            ob0 = jnp.mod(base_c[0], cap)
-            ob1 = jnp.mod(base_c[1], cap)
-            dlr = jnp.mod(ob0 - ob1, cap)
-            l_ahead = dlr <= DMAX
-            cm = jnp.where(l_ahead, ob1, ob0)
-            dstart = [
-                jnp.clip(jnp.where(l_ahead, dlr, 0), 0, DMAX),
-                jnp.clip(jnp.where(l_ahead, 0, cap - dlr), 0, DMAX),
-            ]
-            rstart = jnp.mod(cm - K, cap) + FP
-            if b == 0:
-                rstart0 = rstart
-                r0g = rstart0 // GW
-                base_col = r0g * GW
-            rel = jnp.mod(rstart - rstart0, cap)
-            rsh.append((rstart0 - base_col + rel) // PW - row0s[b])
-            exr = jnp.mod(rstart, PW)
-            for e in range(2):
-                ds_e, fh_e, fl_e = ro["split_c"][e]
-                scal01[e].append(jnp.stack(
-                    [frac_c[e], fh_e, fl_e, ds_e.astype(jnp.float32)],
-                    axis=-1,
-                ))
-                g01[e].append(jnp.stack(
-                    [ro["p_gain_c"][e] * ro["maskf"],
-                     ro["d_gain_c"][e] * ro["maskf"]],
-                    axis=-1,
-                ))
-                e01[e].append(exr + dstart[e])
-                f01[e].append(ro["frz_c"][e])
-        # ONE superwindow per voice: whole (8, 128)-tile granules, wrapped
-        # granule-wise (mod capg) so the span may exceed the mirror width
-        ngr_s = -(-int(GW - 1 + (nb - 1) * (advf + K) + WIN) // GW)
-        kg = FPG + jnp.mod(
-            r0g[:, None] - FPG + jnp.arange(ngr_s, dtype=jnp.int32)[None, :],
-            capg,
-        )
-        ridx = (vb8[:, None] + kg).reshape(-1)
-        wide = jnp.take(rows8, ridx, axis=0).reshape(V, ngr_s * GW)
-        out = window_select_tiles_multi(
-            wide,
-            jnp.stack(rsh, axis=-1),
-            tuple(jnp.concatenate(scal01[e], axis=-1) for e in range(2)),
-            tuple(jnp.concatenate(g01[e], axis=-1) for e in range(2)),
-            tuple(jnp.stack(e01[e], axis=-1) for e in range(2)),
-            tuple(jnp.stack(f01[e], axis=-1) for e in range(2)),
-            n=n, K=K, emax2=emax2r, nb=nb, row0s=row0s, hs=hs,
-            interpret=interp,
-        )
-        return S, out
-
-    def _windows_read(self, rows8, vbase, base_c, frac_c, split_c,
-                      p_gain_c, d_gain_c, maskf, cfg, n, cap, FP, interp,
-                      frz_c=None):
-        """Tile-granule window gather + fractional per-ear select over one
-        voice set (the main pool or the family sub-pass list), mixed to
-        (2, n).  ``rows8`` is the (8, 128)-tile view of the full ring;
-        ``vbase`` maps each rendered row to its voice's first granule.
-        Cursor args are per-ear (V,) component lists (base_c, frac_c,
-        p_gain_c, d_gain_c; split_c = [(ds_int, f_hi, f_lo)] x 2) — the
-        whole prep stays lane-major and the kernel takes per-ear operands
-        directly (ops/geometry.py component notes).
-
-        Windows come off whole 1024-col granules (the physically linear
-        unit — ~9x cheaper per byte than row granules,
-        tools/r3_probe13.py; per-voice dynamic_slice measured ~serial);
-        the granule remainder splits into a once-per-voice coarse realign
-        inside the kernel (rowshift, multiples of 128) plus the sub-row
-        part riding the per-ear stagger."""
-        R_CHUNK, K = cfg
-        DMAX = self.emax2
-        PW = 128
-        GW = 8 * PW
-        emax2r = PW - 1 + self.emax2
+        read = _ring_reader()
+        flat = ring.reshape(-1)
+        voff = vidx * np.int32(self.rowlen) + np.int32(self.W_CHUNK)
         base_c, frac_c = list(base_c), list(frac_c)
         parts = []
         for j0 in range(0, n, R_CHUNK):
             n_c = min(R_CHUNK, n - j0)
-            ob0 = jnp.mod(base_c[0], cap)
-            ob1 = jnp.mod(base_c[1], cap)
-            dlr = jnp.mod(ob0 - ob1, cap)
-            l_ahead = dlr <= DMAX
-            cm = jnp.where(l_ahead, ob1, ob0)
-            dstart = [
-                jnp.clip(jnp.where(l_ahead, dlr, 0), 0, DMAX),
-                jnp.clip(jnp.where(l_ahead, 0, cap - dlr), 0, DMAX),
+            g0_c = [
+                (p_gain_c[e] + np.float32(j0) * d_gain_c[e]) * maskf
+                for e in range(2)
             ]
-            rstart = jnp.mod(cm - K, cap) + FP
-            # ngr granules cover remainder + window; the span can overrun
-            # the mirror into the dump slack, but the realign masks those
-            # columns to zero before any ear reads them
-            SREAD = select_window(n_c, emax2r, K)
-            ngr = -(-(GW - 1 + SREAD) // GW)
-            r0 = rstart // GW
-            ridx = (
-                vbase[:, None] + r0[:, None] + jnp.arange(ngr)[None, :]
-            ).reshape(-1)
-            wide = jnp.take(rows8, ridx, axis=0).reshape(
-                base_c[0].shape[0], ngr * GW
-            )
-            rowshift = (rstart - r0 * GW) // PW
-            exr = jnp.mod(rstart, PW)
-            # the kernel reconstructs a_j = win[extra + j + kk_j] with
-            # kk_j = whole_j - j + K in [0, 2K] from the packed cursor
-            # scalars (exact split-ds math in-kernel); gains ship with the
-            # voice mask folded in (exact for 0/1 masks)
-            scal01, g01, e01 = [], [], []
-            for e in range(2):
-                ds_e, fh_e, fl_e = split_c[e]
-                scal01.append(jnp.stack(
-                    [frac_c[e], fh_e, fl_e, ds_e.astype(jnp.float32)],
-                    axis=-1,
-                ))
-                g0_e = (p_gain_c[e] + np.float32(j0) * d_gain_c[e]) * maskf
-                g01.append(jnp.stack([g0_e, d_gain_c[e] * maskf], axis=-1))
-                e01.append((exr + dstart[e]).astype(jnp.int32)[:, None])
-            parts.append(window_select_tiles_ears(
-                wide, rowshift, scal01, g01, e01, n=n_c,
-                K=K, emax2=emax2r, interpret=interp, hmax=GW // PW,
-                frz01=frz_c,
+            dg_c = [d_gain_c[e] * maskf for e in range(2)]
+            parts.append(read(
+                flat, voff, base_c, frac_c, split_c, g0_c, dg_c, n_c, cap
             ))
             if j0 + n_c < n:
                 for e in range(2):
@@ -2642,13 +2340,9 @@ class SpatialScene(Signal):
                 getattr(p, "_elapsed", 0.0),
                 getattr(p, "_has_play", False),
                 getattr(p, "_has_mot", False),
-                getattr(p, "_w_aligned", 0),
                 getattr(p, "_w_free", False),
-                getattr(p, "_ds_small", True),
-                getattr(p, "_ds_tier", 4),
                 getattr(p, "_read_cfg", None),
                 getattr(p, "_sub_cfg", None),
-                getattr(p, "_use_strips", True),
             )
             for p in self._all_pools()
         )
@@ -2878,7 +2572,7 @@ class SpatialSceneControl:
 
     # -- observability (additive; the reference exposes only per-handle
     # getters, gain.rs:134-136 / frames.rs:238-247 — the tier machinery is
-    # TPU-build-specific and its demotions must be user-diagnosable) ------
+    # engine-specific and its demotions must be user-diagnosable) ------
 
     def read_tiers(self):
         """Per-pool snapshot of the active buffered read plan: the

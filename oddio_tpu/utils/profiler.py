@@ -1,7 +1,7 @@
 """Rendering observability: xRT counters and JAX profiler hooks.
 
 The reference has zero instrumentation (SURVEY.md §5 — "you hear glitches");
-this is the additive TPU-side equivalent: wrap a Renderer to track how many
+this is the additive device-side equivalent: wrap a Renderer to track how many
 times faster than real time it runs, and optionally capture a device trace.
 """
 

@@ -1,8 +1,9 @@
-"""Fused AGC kernel (ops/pallas_agc.py) vs the associative-scan EMA.
+"""Closed-form AGC (ops/adapt.py::ema_gain_closed) vs the associative-scan
+EMA.
 
-The closed-form kernel replaces the scan when the pool-tracked tau bound
-holds (EMA_NMAX * interval/tau_min <= EMA_GATE); pathological taus keep
-the associative path (adapt.rs:69-88 semantics must hold either way)."""
+The closed form replaces the scan when the pool-tracked tau bound holds
+(EMA_NMAX * interval/tau_min <= EMA_GATE); pathological taus keep the
+associative path (adapt.rs:69-88 semantics must hold either way)."""
 
 import numpy as np
 import jax
@@ -10,13 +11,11 @@ import jax.numpy as jnp
 import pytest
 
 import oddio_tpu as ot
-from oddio_tpu.ops.adapt import _ema_gain
-from oddio_tpu.ops.pallas_agc import (agc_gains, ema_gain_closed,
-                                      pack_agc_scalars)
+from oddio_tpu.ops.adapt import _ema_gain, ema_gain_closed
 
 
 @pytest.mark.parametrize("V,n", [(7, 512), (32, 512), (5, 128), (48, 384)])
-def test_kernel_matches_associative_scan(V, n):
+def test_closed_form_matches_associative_scan(V, n):
     rng = np.random.default_rng(V * 1000 + n)
     s = jnp.asarray(rng.standard_normal((V, n)) * 0.4, jnp.float32)
     alpha = jnp.asarray(rng.uniform(1e-5, 0.06, V), jnp.float32)
@@ -26,20 +25,14 @@ def test_kernel_matches_associative_scan(V, n):
     mg = jnp.asarray(rng.uniform(1, 8, V), jnp.float32)
     avg0 = jnp.asarray(rng.uniform(1e-4, 1.0, V), jnp.float32)
     g1, c1 = _ema_gain(avg0, s, alpha, count, low, high, mg, n)
-    scal = pack_agc_scalars(avg0, alpha, count, low, high, mg)
-    g2, c2 = agc_gains(s, scal, n=n, interpret=True)
+    g2, c2 = ema_gain_closed(avg0, s, alpha, count, low, high, mg, n)
     assert float(jnp.max(jnp.abs(g1 - g2))) < 5e-6
     crel = jnp.max(jnp.abs(c1 - c2) / jnp.maximum(jnp.abs(c1), 1e-20))
     assert float(crel) < 1e-4
-    # the plain-XLA twin (the non-TPU production path) pins the same form
-    g3, c3 = ema_gain_closed(avg0, s, alpha, count, low, high, mg, n)
-    assert float(jnp.max(jnp.abs(g1 - g3))) < 5e-6
-    crel3 = jnp.max(jnp.abs(c1 - c3) / jnp.maximum(jnp.abs(c1), 1e-20))
-    assert float(crel3) < 1e-4
 
 
-def test_kernel_under_scene_vmap():
-    """The ScenePack form: the kernel vmapped over a scene axis."""
+def test_closed_form_under_scene_vmap():
+    """The ScenePack form: the closed form vmapped over a scene axis."""
     rng = np.random.default_rng(3)
     S, V, n = 3, 16, 512
     s = jnp.asarray(rng.standard_normal((S, V, n)) * 0.4, jnp.float32)
@@ -51,9 +44,8 @@ def test_kernel_under_scene_vmap():
     avg0 = jnp.full((S, V), np.float32(0.01))
     g1, c1 = jax.vmap(lambda a, b, al, c, l, h, m: _ema_gain(
         a, b, al, c, l, h, m, n))(avg0, s, alpha, count, low, high, mg)
-    g2, c2 = jax.vmap(lambda a, b, al, c, l, h, m: agc_gains(
-        b, pack_agc_scalars(a, al, c, l, h, m), n=n, interpret=True,
-    ))(avg0, s, alpha, count, low, high, mg)
+    g2, c2 = jax.vmap(lambda a, b, al, c, l, h, m: ema_gain_closed(
+        a, b, al, c, l, h, m, n))(avg0, s, alpha, count, low, high, mg)
     assert float(jnp.max(jnp.abs(g1 - g2))) < 5e-6
     assert float(jnp.max(jnp.abs(c1 - c2))) < 1e-5
 
@@ -69,13 +61,13 @@ def _adapt_scene(taus, freqs):
 
 
 def test_dr_pool_fast_path_matches_scan_path():
-    """Same scene rendered with the kernel gate open vs forced shut —
-    audio must agree (the kernel's closed form is <= ~1e-6 of the scan)."""
+    """Same scene rendered with the closed-form gate open vs forced shut —
+    audio must agree (the closed form is <= ~1e-6 of the scan)."""
     rng = np.random.default_rng(7)
     freqs = rng.uniform(50, 2000, 24)
 
     def run(gate):
-        import oddio_tpu.ops.pallas_agc as pagc
+        import oddio_tpu.ops.adapt as pagc
 
         old = pagc.EMA_GATE
         pagc.EMA_GATE = gate

@@ -1,5 +1,5 @@
 """Device-resident control deltas: Gain/Speed handles writing into DR pools
-(gain.rs:103-108, speed.rs:32-36 semantics on the TPU control plane)."""
+(gain.rs:103-108, speed.rs:32-36 semantics on the device control plane)."""
 
 import numpy as np
 
@@ -154,52 +154,6 @@ def test_adapt_limit_dr_matches_host():
         outs.append(r.render_frames(2048))
     err = np.abs(outs[0] - outs[1]).max()
     assert err < 2e-5, err
-
-
-def _dr_ab(sig, interval, n, blocks, use_kernel):
-    """Render `blocks` DR blocks of a single-voice chain, with or without
-    the garena (strided-resample kernel) path."""
-    import jax
-    import jax.numpy as jnp
-
-    st = jax.tree.map(lambda a: jnp.asarray(np.stack([a])), sig.dr_slot_row(interval))
-    dd = dict(sig.device_data())
-    if not use_kernel:
-        dd.pop("garena")
-    out = []
-    cnt = jnp.full(1, n, jnp.int32)
-    for _ in range(blocks):
-        st, smp = sig.dr_render(st, dd, interval, n, cnt)
-        out.append(np.asarray(smp))
-    return np.concatenate(out, axis=-1)
-
-
-def test_frames_resample_kernel_matches_gather():
-    """The strided-resample kernel path (guarded arena) matches the
-    elementwise gather path to f32 contraction noise, across negative
-    starts, rate ratios, and the finish tail (frames.rs:105-123 edges)."""
-    rng = np.random.default_rng(5)
-    frames = ot.Frames.from_slice(8000, rng.standard_normal(3001).astype(np.float32))
-    for start in (-0.08, 0.0, 0.31):
-        for speed in (1.0, 0.71, 2.5):
-            iv = speed / 8000.0
-            a = _dr_ab(ot.FramesSignal(frames, start), iv, 512, 8, True)
-            b = _dr_ab(ot.FramesSignal(frames, start), iv, 512, 8, False)
-            assert np.abs(a - b).max() < 1e-6, (start, speed)
-
-
-def test_cycle_resample_kernel_matches_gather():
-    """Looped-region kernel path == elementwise mod-gather path, including
-    seam lerp at odd table lengths (cycle.rs:34-47)."""
-    rng = np.random.default_rng(6)
-    for L in (777, 2048, 100):
-        frames = ot.Frames.from_slice(8000, rng.standard_normal(L).astype(np.float32))
-        outs = []
-        for use_kernel in (True, False):
-            c = ot.Cycle(frames)
-            c.seek(0.03)
-            outs.append(_dr_ab(c, 1.3 / 8000.0, 512, 12, use_kernel))
-        assert np.abs(outs[0] - outs[1]).max() < 1e-6, L
 
 
 def test_frames_control_readout_in_dr_pool():
@@ -366,7 +320,7 @@ def test_buffered_spatial_retrace_containment():
 
 
 def test_idle_slot_cursors_hold():
-    """ADVICE r2: dead/unplayed slots must not advance their inner cursors
+    """Dead/unplayed slots must not advance their inner cursors
     (an idle slot's int32 sample cursor would wrap after ~12 h at 48 kHz,
     corrupting lingering is_finished readbacks)."""
     control, scene = ot.SpatialScene.new()
@@ -390,7 +344,7 @@ def test_idle_slot_cursors_hold():
 
 
 def test_stale_handle_mirror_still_readable():
-    """ADVICE r2: set-after-death still updates what get() reads back
+    """Set-after-death still updates what get() reads back
     (gain.rs:130-139 — the reference's orphaned atomics stay writable);
     only the device delta is dropped."""
     frames = ot.Frames.from_slice(8000, np.ones(32, np.float32))

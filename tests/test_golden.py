@@ -1,4 +1,4 @@
-"""Golden numerical parity: the TPU engine vs the scalar oracle
+"""Golden numerical parity: the engine vs the scalar oracle
 (tests/reference_impl.py) on the BASELINE.json workload configs (scaled down
 for the Python-loop oracle).
 
@@ -250,9 +250,8 @@ def test_golden_spatial_flyby_large_blocks(buffered):
 
 def test_golden_buffered_huge_blocks_wrapped_reads():
     """2048-frame blocks on the DR buffered pool: the second block's append
-    starts at start_i = 2048 >= M_PAD with n_write = 2048 > W_CHUNK, where
-    the aligned fast path's mirror/dump DMA leg has no room — it must fall
-    back to the chunked general path (a too-wide dump leg would overflow
+    starts at start_i = 2048 >= M_PAD with n_write = 2048 > W_CHUNK, so it
+    lands as two chunked slab pairs (a too-wide dump leg would overflow
     the per-voice ring rows and corrupt the mirror).  The source sits at
     25 m so its reads WRAP past the ring end into the mirror whenever the
     write cursor is near 0 — exactly the reads a corrupted mirror breaks."""
@@ -285,10 +284,6 @@ def test_golden_buffered_huge_blocks_wrapped_reads():
         buf = np.zeros((BLOCK, 2), F)
         ref.oddio_run(oscene, RATE, buf)
         errs.append(np.abs(eng - buf).max())
-        if i >= 1:
-            # start_i alternates 0/2048; the 2048-start blocks must not
-            # claim the aligned DMA path (mirror leg would overflow)
-            assert pool._w_aligned == (2048 if i % 2 == 0 else 0)
     err = max(errs)
     assert err <= 1e-5, (err, errs)
 
@@ -298,8 +293,8 @@ def test_golden_buffered_beyond_max_delay(dr):
     """A voice farther than max_delay*c has BOTH ear offsets clamped at
     -max_delay (spatial.rs:414-415): the read freezes (ds = 0) inside each
     block, beyond the standard read tiers' walk windows.  The DR pool's
-    host walk bound must demote the tier; the host pool sees the true
-    per-voice ds and drops its strip kernels; audio must stay golden."""
+    host walk bound must keep it on the tight tier (ds = 0 reads one
+    constant position exactly); audio must stay golden on both pools."""
     RATE, BLOCK, NBLK = 8000, 512, 8
     tt = np.arange(RATE, dtype=F) / F(RATE)
     boop = np.sin(tt * F(500 * 2 * np.pi), dtype=F)
@@ -329,15 +324,11 @@ def test_golden_buffered_beyond_max_delay(dr):
     assert max(errs) <= 1e-5, errs
     assert np.abs(buf).max() > 1e-4  # the frozen read carries audio
     if dr:
-        # the clamped voice is CERTAINLY FROZEN (ds = 0 exactly): it rides
-        # the select kernel's frozen branch on the tight tier — no
-        # sub-pass listing, no demotion (round 5; previously it was
-        # sub-listed onto the (256, 256) wide tier)
+        # the clamped voice is CERTAINLY FROZEN (ds = 0 exactly): it reads
+        # on the tight tier — no sub-pass listing, no demotion
         assert pool._sub_cfg is None, pool._sub_cfg
         assert list(pool._sub_list) == []
         assert pool._read_cfg == (512, 32), pool._read_cfg
-    else:
-        assert not pool._use_strips
 
 
 def test_golden_family_subpass_mixed_scene():
@@ -408,9 +399,9 @@ def test_golden_family_subpass_mixed_scene():
     assert np.abs(buf).max() > 1e-4
     # the main pool held a 512 tier on every block
     assert all(m is not None and m[0] == 512 for m in mains), mains
-    # CERTAINLY-FROZEN voices (both offsets clamped, ds = 0 exactly) ride
-    # the select kernel's frozen branch on the tight tier and never occupy
-    # sub-pass slots (round 5): the far statics 3 and 4 are unlisted from
+    # CERTAINLY-FROZEN voices (both offsets clamped, ds = 0 exactly) read
+    # on the tight tier and never occupy sub-pass slots: the far statics
+    # 3 and 4 are unlisted from
     # the start; the fast mover (5) and the band voice 6 (inside the
     # p_off-clamp transition band) engage the sub-pass initially
     assert 5 in subs[0][1] and 6 in subs[0][1], subs[0]
@@ -470,11 +461,9 @@ def test_golden_slow_scene_tight_walk_tier():
 
 
 def test_golden_heavy_downsample():
-    """ds = 8 resampling — beyond the resample kernel's window clamp
-    (RESAMPLE_DSMAX): DR pools fall back to the exact whole-arena gather
-    (frames.rs:176-201 resamples at any ratio, aliasing included), flip
-    back to the kernel path when a set_speed brings the bound down, and
-    match the oracle throughout."""
+    """ds = 8 resampling: DR pools read with the exact whole-arena gather
+    (frames.rs:176-201 resamples at any ratio, aliasing included), keep
+    matching the oracle when a set_speed brings the step back to 1."""
     # BLOCK=256 keeps the reference's f32 ``offset += ds`` accumulation
     # wobble (positions reach n*ds = 2048, frames.rs:189-196) under the
     # 1e-5 bound; the engine's closed-form positions are near-exact
@@ -503,7 +492,7 @@ def test_golden_heavy_downsample():
     errs = []
     for i in range(8):
         if i == 4:
-            spc.set_speed(1.0)   # bound drops -> kernel path resumes
+            spc.set_speed(1.0)
             osp.speed = np.float32(1.0)
         eng = r.render_block(BLOCK)
         buf = np.zeros(BLOCK, F)
@@ -513,10 +502,10 @@ def test_golden_heavy_downsample():
 
 
 @pytest.mark.parametrize("rring,force_host", [
-    (12000, False),  # ratio 1.5: tiered kernel path (shorter chunk, wider K)
+    (12000, False),  # ratio 1.5: tiered read (shorter chunk, wider K)
     (4000, False),   # ratio 0.5
-    (24000, False),  # ratio 3.0: beyond every tier -> exact elementwise read
-    (12000, True),   # host pool: strips gate off -> exact elementwise branch
+    (24000, False),  # ratio 3.0: beyond every tier -> one untiered read
+    (12000, True),   # host pool
     (24000, True),
 ])
 def test_golden_buffered_rate_mismatch(rring, force_host):
@@ -557,6 +546,4 @@ def test_golden_buffered_rate_mismatch(rring, force_host):
     if not force_host:
         expect_none = rring == 24000
         assert (pool._read_cfg is None) == expect_none, pool._read_cfg
-    else:
-        assert not pool._use_strips
     assert max(errs) <= 1e-5, errs

@@ -376,170 +376,170 @@ def test_mixer_dr_growth_and_finish():
     assert len(pool._free) == pool.capacity
 
 
-def test_rows_append_dma_kernel():
-    """The rows-native append writes primary + mirror legs in place
-    (ops/pallas_ring.py; ring.rs:18-41 write extents)."""
+@pytest.mark.parametrize("start,width", [
+    (0, 512),      # flagship aligned slab, mirror leg into the mirror
+    (700, 513),    # unaligned, slab straddles the mirror boundary
+    (1536, 512),   # past the mirror: second leg goes to the dump slack
+    (1900, 513),   # wraps past cap: tail lands on its home at ring [0, ..)
+    (300, 1500),   # wider than one write chunk: two slab pairs
+])
+def test_ring_append_legs_and_wrap(start, width):
+    """The DR ring append writes every sample at (start + k) mod cap and
+    keeps the mirror region equal to ring [0, M) (ring.rs:18-41)."""
     import jax.numpy as jnp
 
-    from oddio_tpu.ops.pallas_ring import rows_append_dma
+    from oddio_tpu.spatial import _ring_append
 
-    rng = np.random.default_rng(0)
-    V, RPV = 16, 40
-    ring = rng.standard_normal((V, RPV, 128)).astype(np.float32)
-    slab = rng.standard_normal((V, 512)).astype(np.float32)
-    out = np.asarray(
-        rows_append_dma(jnp.asarray(ring), jnp.asarray(slab), 12, 30,
-                        interpret=True)
-    )
-    exp = ring.copy()
-    exp[:, 12:16] = slab.reshape(V, 4, 128)
-    exp[:, 30:34] = slab.reshape(V, 4, 128)
-    np.testing.assert_array_equal(out, exp)
+    rng = np.random.default_rng(start + width)
+    V, cap, FP, M = 3, 2048, 1024, 1024
+    rowlen = FP + cap + M + FP
+    ring = rng.standard_normal((V, rowlen)).astype(np.float32)
+    ring[:, FP + cap : FP + cap + M] = ring[:, FP : FP + M]  # invariant
+    samples = rng.standard_normal((V, width)).astype(np.float32)
+    out = np.asarray(_ring_append(
+        jnp.asarray(ring), jnp.asarray(samples), jnp.int32(start), cap, FP, M
+    ))
+    home = ring[:, FP : FP + cap].copy()
+    home[:, (start + np.arange(width)) % cap] = samples
+    np.testing.assert_array_equal(out[:, FP : FP + cap], home)
+    np.testing.assert_array_equal(out[:, FP + cap : FP + cap + M], home[:, :M])
 
 
-def test_window_select_kernel_matches_positions():
-    """window_select reconstructs a_j = win[extra + j + kk_j] with the
-    exact split-ds positions (ring.rs:51-79 read + spatial.rs:409-431
-    gains), for both the default and widened table widths."""
-    import jax.numpy as jnp
-
-    from oddio_tpu.ops._dev import device_split_ds, exact_positions
-    from oddio_tpu.ops.pallas_ring import (
-        pack_select_scalars, select_window, window_select,
-    )
-
-    rng = np.random.default_rng(1)
-    V, N, K = 16, 256, 64
-    for emax2 in (36, 163):
-        S = select_window(N, emax2, K)
-        win = rng.standard_normal((V, S)).astype(np.float32)
-        ds = rng.uniform(0.99, 1.01, (V, 2)).astype(np.float32)
-        ofrac = rng.uniform(0, 1, (V, 2)).astype(np.float32)
-        ds_int, f_hi, f_lo = device_split_ds(jnp.asarray(ds))
-        scal = pack_select_scalars(jnp.asarray(ofrac), ds_int, f_hi, f_lo)
-        extra = rng.integers(0, emax2, (V, 2)).astype(np.int32)
-        gain0 = rng.uniform(0, 1, (V, 2)).astype(np.float32)
-        d_gain = rng.uniform(-1e-3, 1e-3, (V, 2)).astype(np.float32)
-        maskf = (rng.uniform(0, 1, V) > 0.3).astype(np.float32)
-        got = np.asarray(window_select(
-            jnp.asarray(win), scal, jnp.asarray(gain0), jnp.asarray(d_gain),
-            jnp.asarray(maskf), jnp.asarray(extra), n=N, K=K, emax2=emax2,
-            interpret=True,
-        ))
-        whole, fr = exact_positions(jnp.asarray(ofrac), ds_int, f_hi, f_lo, N)
-        whole = np.asarray(whole)
-        fr = np.asarray(fr)
-        j = np.arange(N)
-        ref = np.zeros((2, N), np.float32)
+def _ring_read_oracle(ring, vidx, base, frac, ds, g0, dg, n, cap):
+    """Per-voice f64 loop: lerp(ring[x], ring[x+1], fr) at base + frac +
+    j*ds (mod cap), gain-ramped and summed (ring.rs:51-79)."""
+    out = np.zeros((2, n))
+    for r, v in enumerate(vidx):
         for e in range(2):
-            kk = np.clip(whole[:, e] - j[None, :] + K, 0, 2 * K)
-            m = extra[:, e : e + 1] + j[None, :] + kk
-            a = np.take_along_axis(win, m, axis=1)
-            b = np.take_along_axis(win, m + 1, axis=1)
-            s = a + fr[:, e] * (b - a)
-            g = gain0[:, e : e + 1] + j[None, :] * d_gain[:, e : e + 1]
-            ref[e] = (s * g * maskf[:, None]).sum(0)
-        np.testing.assert_allclose(got, ref, atol=1e-5)
+            pos = base[e][r] + np.float64(frac[e][r]) + np.arange(n) * ds[e][r]
+            x = np.floor(pos).astype(np.int64)
+            fr = pos - x
+            a = ring[v, x % cap]
+            b = ring[v, (x + 1) % cap]
+            g = np.float64(g0[e][r]) + np.arange(n) * np.float64(dg[e][r])
+            out[e] += (a + fr * (b - a)) * g
+    return out
 
 
-def test_window_select_tiles_matches_narrow():
-    """window_select_tiles (tile-granule span + in-kernel coarse realign)
-    is bit-identical to window_select on the host-realigned narrow window
-    (same reduction order when tile sizes match)."""
+@pytest.mark.parametrize("V", [1, 3, 64])
+def test_ring_read_matches_positions_oracle(V):
+    """The plain DR ring read (gather + lerp + gain ramp + voice sum)
+    against a float64 positions oracle, with frozen (ds = 0, offset
+    clamped, spatial.rs:414-416) and masked voices and ring wrap."""
     import jax.numpy as jnp
 
-    from oddio_tpu.ops._dev import device_split_ds
-    from oddio_tpu.ops.pallas_ring import (
-        pack_select_scalars, select_window, window_select,
-        window_select_tiles,
+    from oddio_tpu.ops._dev import split_ds
+    from oddio_tpu.spatial import _ring_read
+
+    rng = np.random.default_rng(V)
+    cap, n, rowlen, front = 2048, 512, 4096, 1024
+    ring = rng.standard_normal((V + 2, rowlen)).astype(np.float32)
+    vidx = rng.permutation(V + 2)[:V].astype(np.int32)  # a voice subset
+    base = [rng.integers(0, cap, V).astype(np.int32) for _ in range(2)]
+    base[0][0] = cap - 7  # reads wrap past the end of the ring
+    frac = [rng.uniform(0, 1, V).astype(np.float32) for _ in range(2)]
+    ds = [rng.uniform(0.97, 1.03, V).astype(np.float32) for _ in range(2)]
+    if V > 1:
+        ds[0][1] = ds[1][1] = np.float32(0.0)  # frozen voice
+    mask = (np.arange(V) % 5 != 4).astype(np.float32)
+    g0 = [rng.uniform(0, 1, V).astype(np.float32) * mask for _ in range(2)]
+    dg = [rng.uniform(-1e-3, 1e-3, V).astype(np.float32) * mask
+          for _ in range(2)]
+    split = [tuple(jnp.asarray(x) for x in split_ds(d)) for d in ds]
+    got = np.asarray(_ring_read(
+        jnp.asarray(ring.reshape(-1)),
+        jnp.asarray(vidx * rowlen + front),
+        [jnp.asarray(b) for b in base], [jnp.asarray(f) for f in frac],
+        split, [jnp.asarray(g) for g in g0], [jnp.asarray(g) for g in dg],
+        n, cap,
+    ))
+    ref = _ring_read_oracle(
+        ring[:, front : front + cap], vidx, base, frac,
+        [d.astype(np.float64) for d in ds], g0, dg, n, cap,
     )
-
-    rng = np.random.default_rng(3)
-    V, N, K, emax2 = 16, 128, 64, 163
-    WIN = select_window(N, emax2, K)
-    S2 = ((1023 + WIN - 1) // 1024 + 1) * 1024
-    wide = jnp.asarray(rng.standard_normal((V, S2)), jnp.float32)
-    rowshift = rng.integers(0, (S2 - WIN) // 128 + 1, V).astype(np.int32)
-    gain0 = jnp.asarray(rng.uniform(0, 1, (V, 2)), jnp.float32)
-    d_gain = jnp.asarray(rng.uniform(-1e-3, 1e-3, (V, 2)), jnp.float32)
-    maskf = jnp.asarray(rng.integers(0, 2, V), jnp.float32)
-    ds_int, f_hi, f_lo = device_split_ds(
-        jnp.asarray(rng.uniform(0.95, 1.05, (V, 2)), jnp.float32))
-    ofrac = jnp.asarray(rng.uniform(0, 1, (V, 2)), jnp.float32)
-    scal = pack_select_scalars(ofrac, ds_int, f_hi, f_lo)
-    extra = jnp.asarray(rng.integers(0, 36, (V, 2)), jnp.int32)
-
-    win = jnp.stack([wide[v, 128 * rowshift[v]:128 * rowshift[v] + WIN]
-                     for v in range(V)])
-    ref = window_select(win, scal, gain0, d_gain, maskf, extra,
-                        n=N, K=K, emax2=emax2, interpret=True, tile=8)
-    got = window_select_tiles(wide, jnp.asarray(rowshift), scal, gain0,
-                              d_gain, maskf, extra, n=N, K=K, emax2=emax2,
-                              interpret=True, tile=8)
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
+    np.testing.assert_allclose(got, ref, atol=2e-5)
 
 
-def test_kernels_small_voice_counts():
-    """Voice-tiled kernels at V = 1/3/6 (singleton submix pools, tiny user
-    pools): Mosaic needs 8-row voice tiles on real TPU (gather rejects
-    1-row operands; gridded second-minor dims must divide by 8 —
-    tools/r4_probe9.py lowering sweep), so the wrappers zero-pad V up to a
-    multiple of 8.  Pins that the padded path is semantics-neutral: the
-    mix matches the positions-based reference and strip_place leaves
-    non-written lanes untouched."""
+@pytest.mark.parametrize("C,wpos,wcount", [
+    (1, 0, 300),
+    (1, 700, 1),       # single-sample write
+    (2, 900, 200),     # wraps past the ring end, stereo frames
+])
+def test_stream_ingest_write_extents(C, wpos, wcount):
+    """Stream ingest (Receiver::update, stream.rs:24-69) writes exactly
+    ``wcount`` frames at the write cursor (mod the ring size) and keeps
+    every other lane's history, for a pool of voices."""
+    import jax
     import jax.numpy as jnp
 
-    from oddio_tpu.ops._dev import device_split_ds, exact_positions
-    from oddio_tpu.ops.pallas_ring import (
-        pack_select_scalars, select_window, strip_place, window_select,
-    )
+    stream = ot.Stream(8000, 1000, channels=C)
+    size, V = stream.size_pad, 4
+    rng = np.random.default_rng(wpos + wcount)
+    ring = rng.standard_normal((V, C * stream._rows, 128)).astype(np.float32)
+    chunk = rng.standard_normal((V, C, 400)).astype(np.float32)
+    counts = np.array([wcount, 0, wcount // 2, wcount], np.int32)
+    pos = (wpos + np.arange(V) * 37) % size
+    out = np.asarray(jax.vmap(stream._write_one)(jnp.asarray(ring), {
+        "chunk": jnp.asarray(chunk), "wcount": jnp.asarray(counts),
+        "wpos": jnp.asarray(pos, jnp.int32),
+    }))
+    exp = ring.reshape(V, C, size).copy()
+    for v in range(V):
+        exp[v][:, (pos[v] + np.arange(counts[v])) % size] = chunk[v, :, : counts[v]]
+    np.testing.assert_array_equal(out.reshape(V, C, size), exp)
 
-    rng = np.random.default_rng(7)
-    N, K, emax2 = 256, 64, 36
-    for V in (1, 3, 6):
-        S = select_window(N, emax2, K)
-        win = rng.standard_normal((V, S)).astype(np.float32)
-        ds = rng.uniform(0.99, 1.01, (V, 2)).astype(np.float32)
-        ofrac = rng.uniform(0, 1, (V, 2)).astype(np.float32)
-        ds_int, f_hi, f_lo = device_split_ds(jnp.asarray(ds))
-        scal = pack_select_scalars(jnp.asarray(ofrac), ds_int, f_hi, f_lo)
-        extra = rng.integers(0, emax2, (V, 2)).astype(np.int32)
-        gain0 = rng.uniform(0, 1, (V, 2)).astype(np.float32)
-        d_gain = rng.uniform(-1e-3, 1e-3, (V, 2)).astype(np.float32)
-        maskf = np.ones(V, np.float32)
-        got = np.asarray(window_select(
-            jnp.asarray(win), scal, jnp.asarray(gain0), jnp.asarray(d_gain),
-            jnp.asarray(maskf), jnp.asarray(extra), n=N, K=K, emax2=emax2,
-            interpret=True,
-        ))
-        whole, fr = exact_positions(jnp.asarray(ofrac), ds_int, f_hi, f_lo, N)
-        whole = np.asarray(whole)
-        fr = np.asarray(fr)
-        j = np.arange(N)
-        ref = np.zeros((2, N), np.float32)
-        for e in range(2):
-            kk = np.clip(whole[:, e] - j[None, :] + K, 0, 2 * K)
-            m = extra[:, e : e + 1] + j[None, :] + kk
-            a = np.take_along_axis(win, m, axis=1)
-            b = np.take_along_axis(win, m + 1, axis=1)
-            s = a + fr[:, e] * (b - a)
-            g = gain0[:, e : e + 1] + j[None, :] * d_gain[:, e : e + 1]
-            ref[e] = (s * g * maskf[:, None]).sum(0)
-        np.testing.assert_allclose(got, ref, atol=1e-5)
 
-        # strip_place at small V: inserted lanes land, history lanes hold
-        strips = rng.standard_normal((V, 512)).astype(np.float32)
-        samples = rng.standard_normal((V, 200)).astype(np.float32)
-        e0 = rng.integers(0, 256, V).astype(np.int32)
-        cnt = rng.integers(1, 201, V).astype(np.int32)
-        out = np.asarray(strip_place(
-            jnp.asarray(strips), jnp.asarray(samples), jnp.asarray(e0),
-            jnp.asarray(cnt), interpret=True,
-        ))
-        exp = strips.copy()
-        for v in range(V):
-            exp[v, e0[v]:e0[v] + cnt[v]] = samples[v, :cnt[v]]
-        np.testing.assert_array_equal(out, exp)
+def _resample_voice(kind, data):
+    """(engine signal, scalar-oracle twin or None) of one sampler kind."""
+    import reference_impl as ref
+
+    if kind == "frames":
+        sig = ot.FramesSignal(ot.Frames.from_slice(8000, data), 0.0)
+        return sig, ref.OFramesSignal(ref.OFrames(8000, data), 0.0, exact=True)
+    if kind == "cycle":
+        table = data[:1024]
+        return (ot.Cycle(ot.Frames.from_slice(8000, table)),
+                ref.OCycle(ref.OFrames(8000, table)))
+    sig = ot.Stream(8000, 4000)
+    sig.control.write(data)
+    return sig, None
+
+
+@pytest.mark.parametrize("kind", ["frames", "cycle", "stream"])
+@pytest.mark.parametrize("ratio", [1.0, 0.92, 3.0])
+def test_dr_resample_matches_reference(kind, ratio):
+    """Device-resident sampler reads (FramesSignal, Cycle, Stream in a DR
+    mixer pool) at source/output rate ratios 1, 0.92 and 3, over blocks
+    longer than one position-walk chunk where the oracle allows: Frames and Cycle against
+    the scalar oracle (frames.rs:176-201, cycle.rs:26-53), Stream against
+    the host pool's per-voice render (stream.rs:37-61)."""
+    import reference_impl as ref
+
+    data = np.sin(np.linspace(0, 2 * np.pi * 4, 4097)[:-1]).astype(np.float32)
+    rate = int(round(8000 / ratio))
+    # the oracle's Cycle accumulates its f32 offset per frame (cycle.rs:
+    # 40-47), so its drift stays inside 1e-5 only over shorter blocks
+    n, nblk = (128, 12) if kind == "cycle" else (600, 3)
+    outs = []
+    for dr in (True, False):
+        sig, osig = _resample_voice(kind, data)
+        if not dr:
+            if osig is not None:
+                om = ref.OMixer(channels=1)
+                om.play(osig)
+                bufs = [np.zeros(n, np.float32) for _ in range(nblk)]
+                for b in bufs:
+                    ref.oddio_run(om, rate, b)
+                outs.append(np.concatenate(bufs)[:, None])
+                break
+            sig.dr_supported = lambda: False  # force the host pool
+        control, mixer = ot.Mixer.new(channels=1)
+        control.play(sig)
+        assert next(iter(mixer._pools.values())).is_dr == dr
+        r = ot.Renderer(mixer, rate)
+        outs.append(np.concatenate([r.render_block(n) for _ in range(nblk)]))
+    assert np.abs(outs[0]).max() > 0.1
+    np.testing.assert_allclose(outs[0], outs[1], atol=1e-5)
 
 
 def test_submix_in_mixer():
@@ -572,8 +572,7 @@ def test_submix_singleton_pool_reuse():
     """Replaying a SAME-ARCHETYPE submix after the previous one stopped
     rebinds the freed singleton pool in place (PoolSingleton.rebind): no
     pool leak, no new compiled programs — the reference replays boxed
-    signals freely (mixer.rs:18-26) and so must we (round-5 VERDICT
-    item 7)."""
+    signals freely (mixer.rs:18-26) and so must we."""
     import oddio_tpu as ot
 
     def make_sub(freq):
@@ -602,58 +601,3 @@ def test_submix_singleton_pool_reuse():
     c3.play(ot.Sine(0.0, 700.0))
     mc_top.play(sub3)
     assert len(top._pools) == npools + 1
-
-def test_strip_resample_tile_independent():
-    """strip_resample's grid tile must not change the audio: the per-voice
-    math is tile-independent (r5: proven bit-exact on real TPU across
-    tile 8 vs adaptive, tools/r5_probe6.py — max|diff| = 0.0; the
-    platform-aware default picks adaptive when compiled, 8 under
-    interpret).  Pins the isolated-kernel invariant and both
-    ODDIO_RESAMPLE_TILE override forms against the positions oracle."""
-    import os
-
-    import jax.numpy as jnp
-
-    from oddio_tpu.ops._dev import device_split_ds, exact_positions
-    from oddio_tpu.ops.pallas_ring import (
-        RESAMPLE_W, pack_select_scalars, strip_resample,
-    )
-
-    rng = np.random.default_rng(11)
-    V, n = 32, 512
-    S = 1536  # >= RESAMPLE_W, multiple of 128
-    strips = rng.standard_normal((V, S)).astype(np.float32)
-    t = rng.uniform(0, 1, V).astype(np.float32)
-    ds = rng.uniform(0.1, 1.5, V).astype(np.float32)
-    ds_int, f_hi, f_lo = device_split_ds(jnp.asarray(ds))
-    scal = pack_select_scalars(jnp.asarray(t), ds_int, f_hi, f_lo)
-    extra = np.full(V, 1, np.int32)  # one-sample bias, like _dr_resample
-
-    def run(tile=None, env=None):
-        old = os.environ.pop("ODDIO_RESAMPLE_TILE", None)
-        try:
-            if env is not None:
-                os.environ["ODDIO_RESAMPLE_TILE"] = env
-            return np.asarray(strip_resample(
-                jnp.asarray(strips), scal, jnp.asarray(extra), n=n,
-                interpret=True, tile=tile,
-            ))
-        finally:
-            os.environ.pop("ODDIO_RESAMPLE_TILE", None)
-            if old is not None:
-                os.environ["ODDIO_RESAMPLE_TILE"] = old
-
-    base = run(tile=8)
-    # the positions oracle (frames.rs:176-196 trunc-form arithmetic)
-    whole, fr = exact_positions(jnp.asarray(t), ds_int, f_hi, f_lo, n)
-    whole = np.asarray(whole)
-    fr = np.asarray(fr)
-    m = extra[:, None] + whole
-    a = np.take_along_axis(strips, m, axis=1)
-    b = np.take_along_axis(strips, np.minimum(m + 1, S - 1), axis=1)
-    np.testing.assert_allclose(base, a + fr * (b - a), atol=1e-5)
-
-    # isolated-kernel tile independence (bit-exact)
-    for variant in (run(tile=16), run(tile=32), run(env="16"),
-                    run(env="adaptive")):
-        np.testing.assert_array_equal(variant, base)

@@ -151,12 +151,11 @@ def _build_buffered_multi(seed=7):
 
 
 def test_multiblock_idle_groups_match_per_block():
-    """Fused multi-block idle dispatch (SpatialScene.render_multi: one
-    superwindow gather + one select kernel for nb blocks) computes the
-    SAME arithmetic as the per-block path: same cursor scalars, same
-    window values (mod-granule wrap reads the ring start where the
-    per-block path reads the mirror twin), same per-block mix order —
-    eager evaluation from a shared state is bit-identical.  Across two
+    """Fused multi-block idle dispatch (SpatialScene.render_multi: nb
+    blocks in one traced group) computes the SAME arithmetic as the
+    per-block path: same cursor scalars, same ring values, same per-block
+    mix order — eager evaluation from a shared state is bit-identical.
+    Across two
     different COMPILED programs XLA's fusion/FMA choices may differ by
     ~1 ulp per op (the PARITY.md reduction-order class), so the
     cross-program assertion is a tight epsilon, with the oracle goldens

@@ -65,8 +65,8 @@ def test_scenepack_clamped_voice_disables_subpass():
     floor disables the split (every scene must share one program) and the
     pack demotes to the wide tier — both paths are exact, so the audio
     must still match.  A fully offset-clamped voice (60 m > 44.3 m) rides
-    along too: round 5's frozen branch renders it inside whatever tier is
-    active with NO listing and NO demotion of its own."""
+    along too: it reads ds = 0 exactly inside whatever tier is active,
+    with NO listing and NO demotion of its own."""
     need_devices(4)
 
     def build(seed):
@@ -367,11 +367,10 @@ def test_scenepack_dr_stream_ingest():
 def test_scenepack_walk_tier_uniform():
     """ScenePack renders every scene with ONE program, so the motion-
     adaptive read tier must agree across the pack: scene 0 is slow/near
-    while scene 1 holds a voice beyond max_delay*c.  Round 5: a fully
-    clamped voice reads ds = 0 exactly and rides the select kernel's
-    FROZEN branch inside the tight tier — it no longer escalates the
-    pack-wide floor, so BOTH scenes keep (512, 32) and the audio must
-    still match per-scene renderers (which use the same frozen branch)."""
+    while scene 1 holds a voice beyond max_delay*c.  A fully
+    clamped voice reads ds = 0 exactly inside the tight tier — it does
+    not escalate the pack-wide floor, so BOTH scenes keep (512, 32) and
+    the audio must still match per-scene renderers."""
     need_devices(8)
 
     def build(far):
@@ -413,8 +412,8 @@ def test_scenepack_walk_tier_uniform():
 
 def test_scenepack_sampler_seek_voices():
     """Sampler (FramesSignal) voices on the DR seek path under shard_map:
-    the guarded-arena resample kernel runs per shard with replicated
-    ddata; pack output matches single-device renderers."""
+    the arena gather runs per shard with replicated ddata; pack output
+    matches single-device renderers."""
     need_devices(8)
     snd = ot.Frames.from_slice(
         8000, np.sin(np.linspace(0, 900, 16000)).astype(np.float32)

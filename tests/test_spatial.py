@@ -264,7 +264,7 @@ def _static_dr_scene(buffered, V=12):
 
 @pytest.mark.parametrize("buffered", [False, True])
 def test_large_blocks_match_chunked(buffered):
-    """Blocks beyond the kernel window (n > 640) render via internal
+    """Blocks beyond one read chunk (n > 640) render via internal
     <=512-frame chunking (signal.rs:19 takes any output length).  With
     static geometry the per-block walk is the identity, so one 2048-frame
     block must equal four 512-frame blocks (up to the ~1-ulp cursor
@@ -372,7 +372,7 @@ class _HostSeekCycle(ot.Cycle):
 
 def test_seek_pool_dr_frames_cycle_matches_host():
     """Sampler voices (FramesSignal, Cycle) on the device-resident seek
-    path: per-ear warped resampling through the strided kernel matches the
+    path: per-ear warped resampling through the exact arena gather matches the
     host seek pool (f32 shift products vs host f64, <= ~2e-5)."""
     rng = np.random.default_rng(9)
     snd = ot.Frames.from_slice(
@@ -508,7 +508,7 @@ def test_tier_observability_getters():
     """SpatialSceneControl.read_tiers()/tier_events(): the active read
     plan (tier, sub-pass occupancy, frozen/band counts, demotion flag) is
     user-visible, and tier transitions are logged — a demoted pool must be
-    diagnosable without reading bench stderr (round-5 VERDICT item 6)."""
+    diagnosable without reading bench stderr."""
     RATE = 8000
     control, scene = ot.SpatialScene.new()
     control.play_buffered(
